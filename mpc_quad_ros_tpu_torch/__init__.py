@@ -1,0 +1,21 @@
+"""mpc_quad_ros_tpu_torch — the PyTorch + CUDA port of ``mpc_quad_ros_tpu``.
+
+The JAX package beside this one stays the reference; this package mirrors its
+layout so every module has a counterpart there:
+
+- ``utils``    : quaternion algebra, the tensor containers
+- ``models``   : quadrotor parameters and dynamics, the recursive GP, the
+                 RGP-augmented MPC model
+- ``ops``      : the batched SQP-RTI solve; ``ops.cuda`` holds the hand-written
+                 Hopper kernels (sources in ``csrc/``) beside their plain
+                 PyTorch versions
+- ``traj``     : the accelerating circle reference and its 13-state expansion
+- ``loop``     : the batch-major closed learning loop
+- ``bench``    : the closed-loop scenario of the benchmark
+- ``interop``  : parameters from the JAX package (as numpy) into this one
+
+Importing the package never imports ``jax``, builds no kernel and touches no
+GPU: the CUDA library is compiled at the first launch on a CUDA tensor.
+"""
+
+__version__ = "0.1.0"
