@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -11,16 +11,24 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    and against the f64 plain version, at the main-path shapes;
 4. kernel B (condense + IPM + KKT + dX) against the f64 plain version, the
    KKT floor, and NaN isolation between scenarios;
-5. the slice: ``SQPSolver.solve_batch`` at B=65536, 20 chained warm-started
-   solves (solves/s), one-scenario latency (p50/p99 of 20 runs of 50 chained
-   solves, CUDA events), and agreement with the f64 CPU solve on a small batch;
-6. the closed learning loop: 16384 episodes x 100 ticks on the accelerating
-   circle at 8 m/s (tick-solves/s, tracking error from tick 30 on).
+5. kernel C (the Riccati-factorised box IPM) at B=65536, N=40 against its
+   f32 and f64 plain versions, dX against the rollout of dU, NaN isolation;
+6. the card's solves against the f64 solves on the CPU, N=10 and N=40;
+7. the N=10 slice: ``SQPSolver.solve_batch`` at B=65536, 20 chained
+   warm-started solves (solves/s), one-scenario latency (p50/p99 of 20 runs
+   of 50 chained solves, CUDA events);
+8. the closed learning loop: 16384 episodes x 100 ticks on the accelerating
+   circle at 8 m/s (tick-solves/s, tracking error from tick 30 on);
+9. the Riccati slice: ``solve_batch(qp_method="auto")`` at N=40, B=65536,
+   10 chained solves (solves/s, honest KKT), then "pdip" at N=40, which must
+   warn and take kernel C;
+10. the backend crossover (``bench/crossover.py``) at B=16384, N = 10, 16,
+    20, 30 (condensed and Riccati) and 80 (Riccati only).
 
-The launch counters are reset just before phases 5-6 and must show both
-kernels launched there; the plain versions are fenced off during those
-phases.  The line before the last lists every kernel; the last line is the
-device summary.
+The launch counters are reset just before each path (phases 7-8, phase 9)
+and read just after; each path must have launched its kernels and no other.
+The plain versions are fenced off during phases 7-10.  The line before the
+last lists every kernel; the last line is the device summary.
 """
 
 from __future__ import annotations
@@ -31,20 +39,24 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mpc_quad_ros_tpu_torch.bench.closed_loop import closed_loop  # noqa: E402
-from mpc_quad_ros_tpu_torch.models import (fold_drag, hummingbird_params,  # noqa: E402
-                                           make_mpc_dynamics, rgp_init)
-from mpc_quad_ros_tpu_torch.ops.cuda import _build, lin_kernel, sqp_fused_kernel  # noqa: E402
-from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig, SQPSolver, init_carry  # noqa: E402
+from mpc_quad_ros_tpu_torch.bench.crossover import crossover_row  # noqa: E402
+from mpc_quad_ros_tpu_torch.bench.operating_point import operating_point  # noqa: E402
+from mpc_quad_ros_tpu_torch.models import fold_drag, make_mpc_dynamics  # noqa: E402
+from mpc_quad_ros_tpu_torch.ops import sqp  # noqa: E402
+from mpc_quad_ros_tpu_torch.ops.cuda import (_build, lin_kernel, riccati_kernel,  # noqa: E402
+                                             sqp_fused_kernel)
 
 SOLVE_B = 65536
 CLOSED_B = 16384
-N_NB = 10
+CROSS_B = 16384
+N_LONG = 40
 # Kernel A against its plain version: xp holds positions up to ~20 m, where
 # one f32 ulp is ~2e-6, and four RK4 stages add a few ulps -> 1e-5.  J entries
 # reach ~15, with the 13-term chain-rule sums of 4 stages behind each -> 1e-4.
@@ -59,9 +71,21 @@ LIN_XP_TOL, LIN_J_TOL = 1e-5, 1e-4
 # at KKT <= 1e-3 may trail the oracle's by one point — statistics of each run
 # against the oracle, not one run against another element by element.
 QP_Z_TOL, QP_KKT_TOL = 4e-2, 1e-3
+# Kernel C against the f64 plain version of the same 12 iterations: the JAX
+# package pins its f32 Riccati kernel at 1e-3 of the f64 oracle
+# (tests/test_riccati_kernel.py:91; measured 2.4e-4 there); on random OCPs
+# the port's kernel sits at 1.6e-6 of its f64 plain version (CUDA test).
+RIC_DU_TOL = 1e-3
+# dX against the f64 affine rollout of the kernel's own dU: f32 rounding of a
+# 40-stage recurrence of 17-term sums, relative to the largest |dX|.
+RIC_DX_REL_TOL = 1e-4
+# The Riccati solve on the card (f32) against the CPU's (f64), N=40: the
+# same bound as the condensed path's, 4e-2.
+RIC_VS_CPU_TOL = QP_Z_TOL
 # The closed loop's tracking error: about twice the physics figure of the
 # JAX benchmark's run of the same scenario (0.022 m).
 ERR_MEAN_TOL = 0.05
+T0 = time.perf_counter()
 
 
 def check(cond, msg: str) -> None:
@@ -70,7 +94,8 @@ def check(cond, msg: str) -> None:
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line; t_s is the script's elapsed wall time."""
+    print(json.dumps({"phase": phase, **kw, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def timed_ms(fn, reps: int = 5) -> float:
@@ -85,37 +110,10 @@ def timed_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bench_inputs(B: int, device, dtype=torch.float32, seed: int = 0, mu_scale: float = 0.0):
-    """The benchmark's operating point: hover at 3 m with velocities U(-3, 3),
-    reference stepped 1-5 m along x over the horizon, RGP drag with 10 basis
-    vectors per axis (mean mu_scale * N(0, 1), 0 in the benchmark).  Drawn in
-    f64 and rounded to f32 whatever `dtype` is, so an f64 run sees the very
-    inputs of the f32 one."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    f64 = torch.float64
-    p = hummingbird_params(dtype=torch.float32).map(lambda a: a.to(device, dtype))
-    cfg = MPCConfig(u_ref=float(p.hover_input.float()))
-    solver = SQPSolver(cfg, make_mpc_dynamics(p))
-    N = cfg.n_nodes
-    x0 = torch.zeros((B, 13), dtype=f64)
-    x0[:, 3] = 1.0
-    x0[:, 2] = 3.0
-    x0[:, 7:10] += -3.0 + 6.0 * torch.rand((B, 3), generator=gen, dtype=f64)
-    y_ref = x0[:, None, :].repeat(1, N, 1)
-    step = 1.0 + 4.0 * torch.rand((B, 1), generator=gen, dtype=f64)
-    y_ref[:, :, 0] += torch.linspace(0, 1, N, dtype=f64)[None, :] * step
-    basis = torch.linspace(-10, 10, N_NB, dtype=f64).expand(B, 3, N_NB)
-    rgp = rgp_init(basis, theta=(3.0, 0.1, 0.01))
-    rgp = rgp.replace(mu_g=mu_scale * torch.randn((B, 3, N_NB), generator=gen, dtype=f64))
-    cast = lambda a: a.float().to(device, dtype)
-    x0, y_ref, rgp = cast(x0), cast(y_ref), rgp.map(cast)
-    return solver, init_carry(cfg, x0), x0, y_ref, rgp
-
-
-def kernel_inputs(B: int, device):
-    """Kernel A's and kernel B's inputs as the main path forms them: one
-    warm-up solve, then the glue of the next Gauss-Newton step."""
-    solver, carry, x0, y_ref, rgp = bench_inputs(B, device, mu_scale=0.3)
+def kernel_inputs(B: int, device, **kw):
+    """The kernels' inputs as the path forms them: one warm-up solve, then
+    the next Gauss-Newton step's (X, U) and folded drag."""
+    solver, carry, x0, y_ref, rgp = operating_point(B, device, mu_scale=0.3, **kw)
     carry, _ = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
     aug = fold_drag(rgp).map(lambda a: a.contiguous())
     return solver, carry, x0, y_ref, aug
@@ -212,9 +210,51 @@ def phase_kernel_b(device) -> dict:
     return {"max_abs_err": err["z_kernel_vs_f64"], "ms": ms, "plain_ms": plain_ms}
 
 
+def phase_kernel_c(device) -> dict:
+    solver, carry, x0, y_ref, aug = kernel_inputs(SOLVE_B, device, N=N_LONG, qp_method="riccati")
+    cfg = solver.cfg
+    w = cfg.weight_tuples()
+    X, U = carry.X, carry.U
+    xp, J = lin_kernel.linearize(X, U, aug, solver.f, cfg.dt)
+    args = [J, *solver.riccati_inputs(X, U, x0, y_ref, y_ref[:, -1], xp)]
+    kernel = lambda a: riccati_kernel.riccati_ipm_from_J(*a, *w, cfg.qp_iters)
+    du, dX = kernel(args)
+    du_p, _ = riccati_kernel.solve_ocp_box_riccati_ipm_plain(*args, *w, cfg.qp_iters)
+    args64 = [a.double() for a in args]
+    du_d, _ = riccati_kernel.solve_ocp_box_riccati_ipm_plain(*args64, *w, cfg.qp_iters)
+    roll = riccati_kernel.affine_rollout(*args64[:3], du.double())
+    err = {"du_kernel_vs_f64": (du.double() - du_d).abs().max().item(),
+           "du_plain_vs_f64": (du_p.double() - du_d).abs().max().item(),
+           "du_kernel_vs_plain": (du - du_p).abs().max().item(),
+           "dX_vs_rollout_of_du": (dX.double() - roll).abs().max().item(),
+           "dX_max_abs": roll.abs().max().item()}
+
+    bad = 7
+    J_bad = J.clone()
+    J_bad[bad, N_LONG // 2, 5, 8] = float("nan")
+    du_b, dX_b = kernel([J_bad] + args[1:])
+    keep = torch.arange(SOLVE_B, device=device) != bad
+    isolated = (bool(torch.isnan(du_b[bad]).any()) and torch.equal(du_b[keep], du[keep])
+                and torch.equal(dX_b[keep], dX[keep]))
+
+    ms = timed_ms(lambda: kernel(args), reps=3)
+    plain_ms = timed_ms(lambda: riccati_kernel.solve_ocp_box_riccati_ipm_plain(
+        *args, *w, cfg.qp_iters), reps=1)
+    emit("kernel_c", B=SOLVE_B, N=N_LONG, **err, nan_isolated=isolated,
+         smem_bytes=_build.load_library().mpcq_riccati_ws_bytes(N_LONG), ms=ms,
+         plain_ms=plain_ms, tol_du=RIC_DU_TOL, tol_dX_rel=RIC_DX_REL_TOL)
+    check(torch.isfinite(du).all() and torch.isfinite(dX).all(), "kernel C: non-finite output")
+    check(err["du_kernel_vs_f64"] < RIC_DU_TOL and err["du_plain_vs_f64"] < RIC_DU_TOL,
+          f"kernel C dU: {err}")
+    check(err["dX_vs_rollout_of_du"] <= RIC_DX_REL_TOL * max(1.0, err["dX_max_abs"]),
+          f"kernel C dX is not the rollout of dU: {err}")
+    check(isolated, "kernel C: a NaN scenario changed another scenario's outputs")
+    return {"max_abs_err": err["du_kernel_vs_f64"], "ms": ms, "plain_ms": plain_ms}
+
+
 def phase_slice(device) -> dict:
     iters, reps = 20, 3
-    solver, carry0, x0, y_ref, rgp = bench_inputs(SOLVE_B, device)
+    solver, carry0, x0, y_ref, rgp = operating_point(SOLVE_B, device)
 
     def chained(carry, x0, y_ref, rgp, n):
         for _ in range(n):
@@ -254,13 +294,77 @@ def phase_slice(device) -> dict:
 def phase_slice_vs_cpu(device) -> None:
     """The card's f32 solve against the f64 plain solve on the CPU."""
     B = 256
-    solver, carry, x0, y_ref, rgp = bench_inputs(B, device, mu_scale=0.3)
+    solver, carry, x0, y_ref, rgp = operating_point(B, device, mu_scale=0.3)
     _, sol = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
-    s64, c64, x64, y64, r64 = bench_inputs(B, "cpu", torch.float64, mu_scale=0.3)
+    s64, c64, x64, y64, r64 = operating_point(B, "cpu", torch.float64, mu_scale=0.3)
     _, ref = s64.solve_batch(c64, x64, y64, y64[:, -1], r64)
     du = (sol.U.double().cpu() - ref.U).abs().max().item()
     emit("slice_vs_cpu_f64", B=B, max_abs_dU=du, tol=QP_Z_TOL)
     check(du < QP_Z_TOL, f"slice: card f32 vs CPU f64 max |dU| = {du}")
+
+
+def phase_riccati_vs_cpu(device) -> None:
+    """The card's f32 Riccati solve at N=40 against the f64 one on the CPU."""
+    B = 256
+    kw = dict(mu_scale=0.3, N=N_LONG, qp_method="riccati")
+    solver, carry, x0, y_ref, rgp = operating_point(B, device, **kw)
+    _, sol = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
+    s64, c64, x64, y64, r64 = operating_point(B, "cpu", torch.float64, **kw)
+    _, ref = s64.solve_batch(c64, x64, y64, y64[:, -1], r64)
+    du = (sol.U.double().cpu() - ref.U).abs().max().item()
+    emit("riccati_vs_cpu_f64", B=B, N=N_LONG, max_abs_dU=du,
+         max_abs_dX=(sol.X.double().cpu() - ref.X).abs().max().item(),
+         kkt_max=sol.kkt_residual.max().item(), kkt_f64_max=ref.kkt_residual.max().item(),
+         tol=RIC_VS_CPU_TOL)
+    check(du < RIC_VS_CPU_TOL, f"riccati: card f32 vs CPU f64 max |dU| = {du}")
+
+
+def phase_riccati_slice(device) -> dict:
+    """solve_batch(qp_method="auto") at N=40 takes kernels A and C; "pdip" at
+    N=40 warns and takes them too."""
+    iters = 10
+    solver, carry, x0, y_ref, rgp = operating_point(SOLVE_B, device, N=N_LONG, qp_method="auto")
+    check(solver._resolve_qp_method() == "riccati", "riccati slice: auto did not pick riccati")
+    carry, _ = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        carry, sol = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
+    torch.cuda.synchronize()
+    solves_per_s = SOLVE_B * iters / (time.perf_counter() - t0)
+    check(sol.U.shape == (SOLVE_B, N_LONG, 4) and torch.isfinite(sol.U).all()
+          and torch.isfinite(sol.X).all(), "riccati slice: bad solve output")
+    check(bool(((sol.U >= 0) & (sol.U <= 1)).all()), "riccati slice: controls left the box")
+    kkt = sol.kkt_residual
+
+    c_before = riccati_kernel.riccati_ipm_from_J.launches
+    b_before = sqp_fused_kernel.fused_sqp_from_J.launches
+    sp, cp, xp0, yp, rp = operating_point(1024, device, N=N_LONG, qp_method="pdip")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, solp = sp.solve_batch(cp, xp0, yp, yp[:, -1], rp)
+    torch.cuda.synchronize()
+    warned = any("shared-memory ceiling" in str(m.message) for m in caught)
+    pdip_took_c = (riccati_kernel.riccati_ipm_from_J.launches == c_before + 1
+                   and sqp_fused_kernel.fused_sqp_from_J.launches == b_before)
+    emit("riccati_slice", B=SOLVE_B, N=N_LONG, chained_solves=iters, solves_per_s=solves_per_s,
+         kkt_max=kkt.max().item(), kkt_median=kkt.median().item(),
+         pdip_n40_warned=warned, pdip_n40_took_kernel_c=pdip_took_c)
+    check(warned and pdip_took_c, "riccati slice: pdip at N=40 did not fall back to kernel C")
+    check(torch.isfinite(solp.U).all(), "riccati slice: pdip fallback gave non-finite controls")
+    return {"solves_per_s": solves_per_s}
+
+
+def phase_crossover(device) -> None:
+    """Condensed against Riccati as N grows; N=16 is where "auto" switches.
+    Below AUTO_RICCATI_MIN_N the condensed step must keep every scenario."""
+    for N in (10, 16, 20, 30, 80):
+        row = crossover_row(CROSS_B, N, reps=3, device=device)
+        emit("crossover", **row, auto=sqp.SQPSolver(sqp.MPCConfig(n_nodes=N, qp_method="auto"),
+                                                    None)._resolve_qp_method())
+        if N < sqp.AUTO_RICCATI_MIN_N:
+            check(row["condensed_nonfinite_share"] == 0,
+                  f"crossover: the condensed step lost scenarios below AUTO_RICCATI_MIN_N: {row}")
 
 
 def phase_closed_loop(device) -> dict:
@@ -278,39 +382,60 @@ def _fenced(name):
     return fence
 
 
+COUNTED = (lin_kernel.linearize, sqp_fused_kernel.fused_sqp_from_J,
+           riccati_kernel.riccati_ipm_from_J)
+PLAINS = ((lin_kernel, "linearize_plain"), (sqp_fused_kernel, "fused_sqp_from_J_plain"),
+          (riccati_kernel, "solve_ocp_box_riccati_ipm_plain"))
+
+
+def drive(*phases):
+    """Run the phases with every launch count at 0 first; the counts after
+    (kernels A, B, C)."""
+    for fn in COUNTED:
+        fn.launches = 0
+    for phase in phases:
+        phase()
+    torch.cuda.synchronize()
+    return [fn.launches for fn in COUNTED]
+
+
 def main() -> None:
     phase_environment()
     device = torch.device("cuda", 0)
     phase_build()
     res_a = phase_kernel_a(device)
     res_b = phase_kernel_b(device)
+    res_c = phase_kernel_c(device)
     phase_slice_vs_cpu(device)
+    phase_riccati_vs_cpu(device)
 
-    # the main path: counters from 0, plain versions fenced off
-    saved = lin_kernel.linearize_plain, sqp_fused_kernel.fused_sqp_from_J_plain
-    lin_kernel.linearize_plain = _fenced("lin_kernel")
-    sqp_fused_kernel.fused_sqp_from_J_plain = _fenced("sqp_fused_kernel")
-    lin_kernel.linearize.launches = 0
-    sqp_fused_kernel.fused_sqp_from_J.launches = 0
+    # the main paths: counts from 0 before each, plain versions fenced off
+    saved = [getattr(mod, name) for mod, name in PLAINS]
+    for mod, name in PLAINS:
+        setattr(mod, name, _fenced(mod.__name__))
     try:
-        phase_slice(device)
-        phase_closed_loop(device)
+        n10 = drive(lambda: phase_slice(device), lambda: phase_closed_loop(device))
+        n40 = drive(lambda: phase_riccati_slice(device))
+        phase_crossover(device)
     finally:
-        lin_kernel.linearize_plain, sqp_fused_kernel.fused_sqp_from_J_plain = saved
-    launches_a = lin_kernel.linearize.launches
-    launches_b = sqp_fused_kernel.fused_sqp_from_J.launches
-    check(launches_a > 0 and launches_b > 0,
-          f"main path launched lin {launches_a} / sqp {launches_b} times")
+        for (mod, name), fn in zip(PLAINS, saved):
+            setattr(mod, name, fn)
+    check(n10[0] > 0 and n10[1] > 0 and n10[2] == 0, f"N=10 path launched A, B, C {n10} times")
+    check(n40[0] > 0 and n40[1] == 0 and n40[2] > 0, f"N=40 Riccati path launched A, B, C {n40} times")
 
     print(json.dumps({"kernels": [
         {"name": "lin_kernel", "route": "cuda",
          "source": "mpc_quad_ros_tpu_torch/csrc/lin_kernel.cu",
          "replaces": "mpc_quad_ros_tpu/ops/pallas/lin_kernel.py:140",
-         "launches": launches_a, **res_a},
+         "launches": n10[0] + n40[0], **res_a},
         {"name": "sqp_fused_kernel", "route": "cuda",
          "source": "mpc_quad_ros_tpu_torch/csrc/sqp_fused_kernel.cu",
          "replaces": "mpc_quad_ros_tpu/ops/pallas/sqp_fused_kernel.py:291",
-         "launches": launches_b, **res_b},
+         "launches": n10[1], **res_b},
+        {"name": "riccati_ipm", "route": "cuda",
+         "source": "mpc_quad_ros_tpu_torch/csrc/riccati_ipm.cu",
+         "replaces": "mpc_quad_ros_tpu/ops/pallas/riccati_kernel.py:54",
+         "launches": n40[2], **res_c},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,8 @@ namespace mpcq {
 // IEEE-accurate math (the library is built without --use_fast_math).
 MPCQ_HD float m_exp(float v) { return expf(v); }
 MPCQ_HD double m_exp(double v) { return exp(v); }
+MPCQ_HD float m_sqrt(float v) { return sqrtf(v); }
+MPCQ_HD double m_sqrt(double v) { return sqrt(v); }
 #if defined(__CUDA_ARCH__)
 MPCQ_HD float m_rsqrt(float v) { return rsqrtf(v); }
 MPCQ_HD double m_rsqrt(double v) { return rsqrt(v); }
@@ -37,6 +39,10 @@ template <typename T> MPCQ_HD T nan_max(T a, T b) { return (a > b || a != a) ? a
 // jnp.maximum(v, floor) / jnp.clip
 template <typename T> MPCQ_HD T floor_at(T v, T lo) { return nan_max(v, lo); }
 template <typename T> MPCQ_HD T clip(T v, T lo, T hi) { return nan_min(nan_max(v, lo), hi); }
+// An interior point's step ratio: -v / dv where dv < 0, else +inf.
+template <typename T> MPCQ_HD T step_ratio(T v, T dv) {
+  return dv < T(0) ? -v / dv : T(INFINITY);
+}
 
 #if defined(__CUDACC__)
 // One warp works on one scenario.

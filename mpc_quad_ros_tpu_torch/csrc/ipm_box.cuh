@@ -34,10 +34,6 @@ template <typename T> struct IpmWork {
   static constexpr int n_vectors = 17;
 };
 
-template <typename T> MPCQ_HD T step_ratio(T v, T dv) {
-  return dv < T(0) ? -v / dv : T(INFINITY);
-}
-
 // H (nz x ld, full symmetric), g, lb, ub: the unscaled QP.  Writes the
 // solution to z_out (nz).
 template <typename T, typename Team>

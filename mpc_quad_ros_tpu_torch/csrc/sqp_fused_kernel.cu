@@ -26,7 +26,11 @@
 // Design: one block of one warp per scenario; J, the condensing map M, H
 // (unscaled, scaled, factor) and the IPM vectors live in shared memory
 // (about 36 KB at N = 10).  Nothing is reduced across blocks, so a NaN in one
-// scenario leaves every other scenario bitwise unchanged.
+// scenario leaves every other scenario bitwise unchanged.  The three nz x ld
+// matrices grow as 48 N^2 bytes: the block's workspace (mpcq_sqp_ws_bytes)
+// passes the H100's 232,448-byte ceiling at N = 31, so the wrapper refuses
+// N > 30 and the solver takes the Riccati kernel there (ops/sqp.py
+// FUSED_N_MAX).
 //
 // What bounds it on the H100: the serial latency of the per-scenario
 // Cholesky (nz dependent column steps, each a warp sync, times `iters`);
@@ -193,6 +197,12 @@ MPCQ_HD void sqp_from_J_scenario(const Team& tm, int N, int iters, const Weights
 
 }  // namespace mpcq
 
+// Dynamic shared memory of one block of the card's (f32) kernel, in bytes:
+// 223,424 at N = 30, 236,820 at N = 31 (an H100 block takes 232,448).
+extern "C" int64_t mpcq_sqp_ws_bytes(int N) {
+  return mpcq::sqp_ws_size(N) * int64_t(sizeof(float));
+}
+
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
@@ -217,7 +227,7 @@ extern "C" int mpcq_sqp_fused(const float* J, const float* r, const float* dx0,
                               const float* ex0, const float* gu, const float* lb,
                               const float* ub, const float* weights, float* z, float* dX,
                               float* kkt, int64_t B, int N, int iters, void* stream) {
-  size_t smem = size_t(mpcq::sqp_ws_size(N)) * sizeof(float);
+  size_t smem = size_t(mpcq_sqp_ws_bytes(N));
   cudaError_t err = cudaFuncSetAttribute(
       mpcq_sqp_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);

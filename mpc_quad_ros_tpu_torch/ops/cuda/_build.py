@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``mpc_quad_ros_tpu_torch/csrc/*.cu`` into one shared
-library with a plain C interface, ``build/torch_kernels/<content-hash>/
-libmpcq_kernels.so`` beside the package, at the first launch on a CUDA
-tensor; ``ctypes`` loads it.  The hash covers the sources and the flags, so
+``nvcc`` compiles every ``mpc_quad_ros_tpu_torch/csrc/*.cu`` (one process per
+source, all at once) and links them into one shared library with a plain C
+interface, ``build/torch_kernels/<content-hash>/libmpcq_kernels.so`` beside
+the package, at the first launch on a CUDA tensor; ``ctypes`` loads it.  The hash covers the sources and the flags, so
 an edit rebuilds and an unchanged tree reuses the library.
 
 The same sources also compile with g++ (``-x c++``) into a host library whose
@@ -26,10 +26,11 @@ CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libmpcq_kernels.so"
 
+# Compile flags of one source; the objects are then linked with -shared.
 # No --use_fast_math: expf / rsqrtf keep their IEEE-accurate forms.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-fPIC")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points and their argument types (pointers and the stream as
@@ -37,11 +38,19 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 DEVICE_ENTRIES = {
     "mpcq_lin": [_P] * 6 + [_I, _P, _P, _I64, _I, _P, _P],
     "mpcq_sqp_fused": [_P] * 11 + [_I64, _I, _I, _P],
+    "mpcq_sqp_ws_bytes": [_I],
+    "mpcq_riccati_ipm": [_P] * 11 + [_I64, _I, _I, _P],
+    "mpcq_riccati_ws_bytes": [_I],
 }
 HOST_ENTRIES = {
     "mpcq_lin_host_f64": [_P] * 6 + [_I, _P, _P, _I64, _I, _P],
     "mpcq_sqp_fused_host_f64": [_P] * 11 + [_I64, _I, _I],
+    "mpcq_sqp_ws_bytes": [_I],
+    "mpcq_riccati_ipm_host_f64": [_P] * 11 + [_I64, _I, _I],
+    "mpcq_riccati_ws_bytes": [_I],
 }
+# entries that return something other than a CUDA status (int)
+RESTYPES = {"mpcq_sqp_ws_bytes": _I64, "mpcq_riccati_ws_bytes": _I64}
 
 _device_lib = None
 
@@ -70,16 +79,31 @@ def find_nvcc() -> str:
 
 
 def _compile(cmd_prefix, flags, out_dir: pathlib.Path) -> pathlib.Path:
+    """One compiler process per source, all started together, then one link."""
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [*cmd_prefix, *flags, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+    tag = os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources()]
+    cmds = [[*cmd_prefix, *flags, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    link = [*cmd_prefix, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(cmd, log) for cmd, log, proc in zip(cmds, logs, procs) if proc.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        cmds, logs = cmds + [link], logs + [proc.stdout]
+        if proc.returncode != 0:
+            failed = [(link, proc.stdout)]
+    (out_dir / "build.log").write_text("".join(" ".join(c) + "\n" + log for c, log in zip(cmds, logs)))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"kernel build failed: {' '.join(failed[0][0])}\n{failed[0][1][-6000:]}")
     os.replace(tmp, lib)
     return lib
 
@@ -93,7 +117,7 @@ def _declare(lib: ctypes.CDLL, entries: dict) -> ctypes.CDLL:
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -18,6 +18,13 @@ def _max_step(v, dv):
     return torch.minimum(torch.ones_like(ratio[..., 0]), 0.995 * ratio.amin(-1))
 
 
+def step_length(sl, su, zl, zu, dz, dzl, dzu):
+    """The interior point's fraction-to-the-boundary step over the last dim:
+    the largest alpha <= 1 that keeps 0.995 of every slack and dual."""
+    return torch.minimum(torch.minimum(_max_step(sl, dz), _max_step(su, -dz)),
+                         torch.minimum(_max_step(zl, dzl), _max_step(zu, dzu)))
+
+
 def ipm_box_solve(H, g, lb, ub, iters: int):
     """min 1/2 z'Hz + g'z s.t. lb <= z <= ub for every leading index:
     Jacobi scaling s = rsqrt(max(diag H, 1e-12)), cold start at the box
@@ -47,8 +54,7 @@ def ipm_box_solve(H, g, lb, ub, iters: int):
         dz = torch.cholesky_solve(rhs[..., None], L)[..., 0]
         dzl = (mu - sl * zl - zl * dz) * sli
         dzu = (mu - su * zu + zu * dz) * sui
-        alpha = torch.minimum(torch.minimum(_max_step(sl, dz), _max_step(su, -dz)),
-                              torch.minimum(_max_step(zl, dzl), _max_step(zu, dzu)))[..., None]
+        alpha = step_length(sl, su, zl, zu, dz, dzl, dzu)[..., None]
         z = z + alpha * dz
         sl = torch.maximum(z - lb, eps)
         su = torch.maximum(ub - z, eps)

@@ -13,7 +13,9 @@ iterations.  Returns z (B, nz), dX (B, N+1, 13), kkt (B,).
 
 ``fused_sqp_from_J`` runs the plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors (f32, contiguous, sm_90), raising on
-anything else.  Only the cold-started IPM is ported: warm duals raise.
+anything else.  Only the cold-started IPM is ported: warm duals raise.  A
+horizon whose workspace passes the device's shared memory per block (N > 30
+on an H100) raises ``ValueError`` before the launch.
 """
 
 from __future__ import annotations
@@ -45,6 +47,15 @@ def _launch(J, r, dx0, ex0, gu, lb, ub, q, p, rw, iters):
     if len(q) != NX or len(p) != NX or len(rw) != NU:
         raise ValueError("sqp_fused_kernel: q, p need 13 weights and rw 4")
     lib = _build.load_library()
+    need = lib.mpcq_sqp_ws_bytes(N)
+    limit = torch.cuda.get_device_properties(J.device).shared_memory_per_block_optin
+    if need > limit:
+        from ..sqp import FUSED_N_MAX
+
+        raise ValueError(
+            f"sqp_fused_kernel: N={N} needs {need} bytes of shared memory per block, "
+            f"the device allows {limit}; the condensed kernel takes N <= FUSED_N_MAX "
+            f"= {FUSED_N_MAX} (use qp_method='riccati' or 'auto' past it)")
     weights = _build.host_floats(list(q) + list(p) + list(rw))
     z = torch.empty((B, nz), dtype=J.dtype, device=J.device)
     dX = torch.empty((B, N + 1, NX), dtype=J.dtype, device=J.device)

@@ -1,12 +1,22 @@
 """Batched SQP-RTI nonlinear MPC over the quadrotor horizon.
 
-Counterpart of ``mpc_quad_ros_tpu/ops/sqp.py`` on its main path: the batched
-Gauss-Newton step of the "hybrid" pipeline with the condensed primal-dual
-interior point (``qp_method="pdip"``), cold-started.  One step is kernel A
-(``ops/cuda/lin_kernel.py``: x+ and J = [A | B] per scenario and stage),
-then kernel B (``ops/cuda/sqp_fused_kernel.py``: condensing, IPM, KKT, dX),
-with the glue of ``_gn_step_batch_hybrid`` between them.  Any batch size B
-is taken as it is.
+Counterpart of ``mpc_quad_ros_tpu/ops/sqp.py`` for ``solve_batch``, with two
+QP backends, cold-started:
+
+- ``qp_method="pdip"``: the Gauss-Newton step of the "hybrid" pipeline with
+  the condensed primal-dual interior point.  Kernel A
+  (``ops/cuda/lin_kernel.py``: x+ and J = [A | B] per scenario and stage),
+  then kernel B (``ops/cuda/sqp_fused_kernel.py``: condensing, IPM, KKT,
+  dX), with the glue of ``_gn_step_batch_hybrid`` between them.
+- ``qp_method="riccati"``: the long-horizon step.  Kernel A, then kernel C
+  (``ops/cuda/riccati_kernel.py``: the Riccati-factorised box IPM, O(N) in
+  the horizon), then a line search on the nonlinear rollout cost and the
+  projected-gradient KKT of that rollout (``_riccati_finish``).
+- ``qp_method="auto"`` takes "pdip" below ``AUTO_RICCATI_MIN_N`` and
+  "riccati" from there; "pdip" past ``FUSED_N_MAX`` warns and takes
+  "riccati".
+
+Any batch size B is taken as it is.
 
 Cost: LINEAR_LS with W = diag(q_pos, q_quat, q_vel, q_rate, r) and the
 reference's quaternion-weight mean quirk; stage cost x dt, terminal cost
@@ -16,6 +26,7 @@ unscaled; u in [u_lb, u_ub].
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -25,7 +36,25 @@ from ..models.augmented import fold_drag
 from ..models.dynamics import rk4_step
 from ..utils.containers import Tensors
 from .cuda.lin_kernel import linearize, model_constants
+from .cuda.riccati_kernel import riccati_ipm_from_J
 from .cuda.sqp_fused_kernel import fused_sqp_from_J
+
+# Shared-memory ceiling of the condensed kernel B: one block holds the
+# scenario's workspace, mpcq_sqp_ws_bytes(N) = 4 (221 N + 26 nz + 26 +
+# 3 nz (nz + 1) + 21 nz) bytes with nz = 4 N, dominated by three nz x (nz+1)
+# matrices: 223,424 B at N = 30, 236,820 B at N = 31, against the 232,448 B
+# an H100 block may opt into.  Past it a dense-H method falls back to the
+# Riccati backend.  A constant, so the CPU and the card dispatch alike.
+FUSED_N_MAX = 30
+DENSE_H_METHODS = ("pdip",)
+# "auto" takes the Riccati backend from this horizon on.  Measured with
+# bench/crossover.py on an NVIDIA H100 80GB HBM3 at 700 W, B=16384, nodes
+# 0.1 s apart: the condensed step is the faster up to N=20 (191 against
+# 283 ms per batched solve) and the slower at N=30 (934 against 531 ms), but
+# from N=16 on its f32 IPM returns non-finite controls for part of the batch
+# (0.4 % at N=16, 10 % at N=18, 39 % at N=20, none at N=10-14), and the
+# Riccati step for none.
+AUTO_RICCATI_MIN_N = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +69,7 @@ class MPCConfig:
     u_ref: float = 0.16          # hover reference control
     sqp_iters: int = 1           # 1 == RTI
     qp_iters: int = 12
+    qp_method: str = "pdip"      # "pdip" | "riccati" | "auto"
 
     @property
     def dt(self) -> float:
@@ -80,7 +110,8 @@ class MPCSolution(Tensors):
     X: torch.Tensor             # (B, N+1, 13) QP-updated state trajectory
     U: torch.Tensor             # (B, N, 4) controls
     cost: torch.Tensor          # (B,) LS cost of the returned trajectory
-    kkt_residual: torch.Tensor  # (B,) projected-gradient norm of the last QP
+    kkt_residual: torch.Tensor  # (B,) projected-gradient norm: of the last QP
+                                # ("pdip"), of the rollout cost ("riccati")
 
 
 def init_carry(cfg: MPCConfig, x0: torch.Tensor) -> SolverCarry:
@@ -118,16 +149,108 @@ class SQPSolver:
         return (xp - X[:, 1:], x0 - X[:, 0], X - torch.cat([y_ref, y_ref_N[:, None]], dim=1),
                 (Uf - cfg.u_ref) * rw, cfg.u_lb - Uf, cfg.u_ub - Uf)
 
+    def _linearize(self, X, U, aug):
+        """Kernel A along (X, U): (xp, J)."""
+        if X.is_cuda and self._lin_consts is None:
+            self._lin_consts = model_constants(self.f.params, self.cfg.dt)
+        return linearize(X, U, aug, self.f, self.cfg.dt, self._lin_consts)
+
+    def _resolve_qp_method(self) -> str:
+        """The QP backend of this configuration: "auto" by the measured
+        crossover; a dense-H method past the condensed kernel's shared-memory
+        ceiling falls back to "riccati" with a warning."""
+        m, N = self.cfg.qp_method, self.cfg.n_nodes
+        if m == "projected_newton":
+            raise NotImplementedError("qp_method='projected_newton' is not ported yet "
+                                      "(ROADMAP queue 1, item 9)")
+        if m not in ("pdip", "riccati", "auto"):
+            raise ValueError(f"unknown qp_method {m!r}")
+        if m == "auto":
+            return "pdip" if N < AUTO_RICCATI_MIN_N else "riccati"
+        if m in DENSE_H_METHODS and N > FUSED_N_MAX:
+            warnings.warn(
+                f"qp_method={m!r} at n_nodes={N} exceeds the condensed kernel's "
+                f"shared-memory ceiling (N={FUSED_N_MAX}); using the O(N) Riccati "
+                f"backend instead (qp_method='riccati' or 'auto' silences this).",
+                stacklevel=3)
+            return "riccati"
+        return m
+
     def _gn_step_batch_hybrid(self, X, U, x0, y_ref, y_ref_N, aug):
         """Kernel A, the glue, kernel B, the update."""
         cfg = self.cfg
-        if X.is_cuda and self._lin_consts is None:
-            self._lin_consts = model_constants(self.f.params, cfg.dt)
-        xp, J = linearize(X, U, aug, self.f, cfg.dt, self._lin_consts)
+        xp, J = self._linearize(X, U, aug)
         q_s, q_term, rw_s = cfg.weight_tuples()
         z, dX, kkt = fused_sqp_from_J(J, *self.qp_inputs(X, U, x0, y_ref, y_ref_N, xp),
                                       q_s, q_term, rw_s, cfg.qp_iters)
         return X + dX, U + z.reshape(U.shape), kkt
+
+    def riccati_inputs(self, X, U, x0, y_ref, y_ref_N, xp) -> tuple:
+        """Kernel C's inputs besides J — the glue of the JAX batched Riccati
+        step: the defects c = xp - X[1:], dx0 = x0 - X[0], qlin = q (X[:-1] -
+        y_ref), rlin = rw (U - u_ref), plin = p (X[N] - y_ref_N), and the box
+        shifted to the increment, lb = u_lb - U, ub = u_ub - U."""
+        cfg = self.cfg
+        kw = dict(dtype=X.dtype, device=X.device)
+        qv, pv, rv = (torch.tensor(w, **kw) for w in cfg.weight_tuples())
+        return (xp - X[:, 1:], x0 - X[:, 0], qv * (X[:, :-1] - y_ref), rv * (U - cfg.u_ref),
+                pv * (X[:, -1] - y_ref_N), cfg.u_lb - U, cfg.u_ub - U)
+
+    def _gn_step_batch_riccati(self, X, U, x0, y_ref, y_ref_N, aug):
+        """Kernel A, the glue, kernel C, then the line search and the honest
+        KKT."""
+        cfg = self.cfg
+        xp, J = self._linearize(X, U, aug)
+        dU, _ = riccati_ipm_from_J(J, *self.riccati_inputs(X, U, x0, y_ref, y_ref_N, xp),
+                                   *cfg.weight_tuples(), cfg.qp_iters)
+        return self._riccati_finish(U, x0, y_ref, y_ref_N, aug, dU)
+
+    def rollout(self, x0, U, aug=None) -> torch.Tensor:
+        """(B, N+1, 13) states of the RK4 model from x0 (B, 13) under U."""
+        xs = [x0]
+        for k in range(U.shape[1]):
+            xs.append(self.discrete_dynamics(xs[-1], U[:, k], self.cfg.dt, aug))
+        return torch.stack(xs, 1)
+
+    def _riccati_finish(self, U, x0, y_ref, y_ref_N, aug, dU):
+        """Line search on the nonlinear rollout cost over alpha in
+        {1, 0.5, 0.25, 0.1} (the first of equal costs wins), then the
+        projected-gradient KKT max |clip(U - grad_U, u_lb, u_ub) - U| of the
+        rollout cost at the accepted U.
+
+        The four candidates roll out as one (4 B) batch.  The gradient is the
+        adjoint recursion over kernel A's J at the accepted trajectory,
+        lam_N = p e_N, lam_k = q e_k + A_k^T lam_{k+1}, grad u_k = rw (u_k -
+        u_ref) + B_k^T lam_{k+1}: the exact gradient that the JAX package
+        takes by reverse mode through the rollout, from J's B N 221 floats
+        (2.3 GB in f32 at B=65536, N=40) and one more launch of kernel A.
+        Autograd would save 4.7 GB of the rollout's intermediates there
+        (counted with saved-tensor hooks at B=64, scaled) and replay its
+        160 model evaluations backwards as eager launches."""
+        cfg = self.cfg
+        B, N = U.shape[:2]
+        kw = dict(dtype=U.dtype, device=U.device)
+        alphas = torch.tensor([1.0, 0.5, 0.25, 0.1], **kw)
+        Uc = (U + alphas[:, None, None, None] * dU).clamp(cfg.u_lb, cfg.u_ub)
+        aug4 = None if aug is None else aug.map(lambda a: a.repeat((4,) + (1,) * (a.dim() - 1)))
+        Xc = self.rollout(x0.repeat(4, 1), Uc.reshape(4 * B, N, 4), aug4).reshape(4, B, N + 1, 13)
+        costs = self.ls_cost(Xc, Uc, y_ref, y_ref_N)                   # (4, B)
+        best = costs.argmin(0)
+        rows = torch.arange(B, device=U.device)
+        X, U = Xc[best, rows].contiguous(), Uc[best, rows].contiguous()
+
+        _, J = self._linearize(X, U, aug)
+        q_s, q_term, rw_s = cfg.weight_tuples()
+        qv, pv, rv = (torch.tensor(w, **kw) for w in (q_s, q_term, rw_s))
+        e = X - torch.cat([y_ref, y_ref_N[:, None]], 1)
+        lam = pv * e[:, N]
+        grad = [None] * N
+        for k in range(N - 1, -1, -1):
+            g = (J[:, k] @ lam[..., None])[..., 0]                     # [A_k^T; B_k^T] lam
+            grad[k] = rv * (U[:, k] - cfg.u_ref) + g[:, 13:]
+            lam = qv * e[:, k] + g[:, :13]
+        proj = (U - torch.stack(grad, 1)).clamp(cfg.u_lb, cfg.u_ub) - U
+        return X, U, proj.abs().amax((1, 2))
 
     def solve_batch(self, carry: SolverCarry, x0: torch.Tensor, y_ref: torch.Tensor,
                     y_ref_N: torch.Tensor, aug=None) -> tuple[SolverCarry, MPCSolution]:
@@ -143,9 +266,11 @@ class SQPSolver:
             aug = aug.map(lambda a: a.contiguous())
         X, U = carry.X.contiguous(), carry.U.contiguous()
         x0, y_ref, y_ref_N = x0.contiguous(), y_ref.contiguous(), y_ref_N.contiguous()
+        step = (self._gn_step_batch_riccati if self._resolve_qp_method() == "riccati"
+                else self._gn_step_batch_hybrid)
         kkt = None
         for _ in range(self.cfg.sqp_iters):
-            X, U, kkt = self._gn_step_batch_hybrid(X, U, x0, y_ref, y_ref_N, aug)
+            X, U, kkt = step(X, U, x0, y_ref, y_ref_N, aug)
         cost = self.ls_cost(X, U, y_ref, y_ref_N)
         return SolverCarry(X=X, U=U), MPCSolution(X=X, U=U, cost=cost, kkt_residual=kkt)
 

@@ -54,9 +54,9 @@ def jax_rgp(arrays: dict) -> JaxRGPState:
     return JaxRGPState(**{k: jnp.asarray(v) for k, v in arrays.items()})
 
 
-def solve_inputs(B: int, seed: int = 0) -> dict:
+def solve_inputs(B: int, seed: int = 0, N: int = N) -> dict:
     """The benchmark's operating point: hover at 3 m with velocities
-    U(-3, 3), the reference stepped 1-5 m along x over the horizon."""
+    U(-3, 3), the reference stepped 1-5 m along x over the N-node horizon."""
     rng = np.random.default_rng(seed)
     x0 = np.zeros((B, 13))
     x0[:, 3] = 1.0
@@ -67,7 +67,7 @@ def solve_inputs(B: int, seed: int = 0) -> dict:
     return {"x0": x0, "y_ref": y_ref, "rgp": rgp_batch(B, rng)}
 
 
-def trajectory_inputs(B: int, seed: int = 0):
+def trajectory_inputs(B: int, seed: int = 0, N: int = N):
     """A perturbed (B, N+1, 13) state trajectory (non-unit quaternions
     included) and (B, N, 4) controls inside the box."""
     rng = np.random.default_rng(seed)
