@@ -16,16 +16,19 @@ N_BASIS = 10
 
 
 def operating_point(B: int, device, dtype=torch.float32, seed: int = 0, mu_scale: float = 0.0,
-                    N: int = 10, qp_method: str = "pdip"):
+                    N: int = 10, qp_method: str = "pdip", pipeline: str = "hybrid",
+                    warm_start_duals: bool = False, qp_iters: int = 12):
     """(solver, carry, x0, y_ref, rgp) of B scenarios.  The RGP posterior
     mean is mu_scale * N(0, 1) (0 in the benchmark).  Drawn in f64 and
     rounded to f32 whatever `dtype` is, so an f64 run sees the very inputs of
-    the f32 one."""
+    the f32 one.  `qp_method`, `pipeline`, `warm_start_duals` and `qp_iters`
+    go to the solver's ``MPCConfig``."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     f64 = torch.float64
     p = hummingbird_params(dtype=torch.float32).map(lambda a: a.to(device, dtype))
     cfg = MPCConfig(n_nodes=N, t_horizon=0.1 * N, u_ref=float(p.hover_input.float()),
-                    qp_method=qp_method)
+                    qp_method=qp_method, pipeline=pipeline, warm_start_duals=warm_start_duals,
+                    qp_iters=qp_iters)
     solver = SQPSolver(cfg, make_mpc_dynamics(p))
     x0 = torch.zeros((B, 13), dtype=f64)
     x0[:, 3] = 1.0

@@ -8,13 +8,20 @@
 //
 // - Jacobi scaling s = rsqrt(max(diag H, 1e-12)): H' = (H s_i) s_j, g' = g s,
 //   lb' = lb / s, ub' = ub / s;
-// - cold start: z at the box midpoint, unit duals;
+// - cold start: z at the box midpoint, unit duals; or, given the previous
+//   solve's duals zl0, zu0 (unscaled), the warm start: z = clip(0,
+//   lb' + WS_GAMMA w, ub' - WS_GAMMA w) with w = ub' - lb', and
+//   zl = max(zl0 s, WS_FLOOR), zu likewise;
 // - exactly `iters` iterations of: mu = 0.1 (sl.zl + su.zu) / (2 nz);
 //   r = Hz + g - zl + zu; Cholesky of H + diag(zl/sl + zu/su) with pivots
 //   rsqrt(max(., 1e-12)); forward and back substitution; dual steps; the
 //   fraction-to-the-boundary step (0.995); slack floor 1e-10 max(width, 1),
 //   dual floor 1e-12;
-// - result clip(z, lb', ub') * s in the original variables.
+// - result clip(z, lb', ub') * s in the original variables, and the duals
+//   zl / s, zu / s (unscaled, on both starts).
+//
+// One definition serves kernels B, E and F, so the three pipelines solve the
+// same QP by the same code (as the Pallas consumers share ipm_box_solve).
 //
 // Matrices are row-major with leading dimension ld = nz + 1 (odd, so a
 // warp's lanes walking a column hit distinct shared-memory banks); only the
@@ -27,6 +34,10 @@
 
 namespace mpcq {
 
+// The warm start's primal margin (a fraction of the scaled box width) and
+// dual floor (in the scaled system): WS_GAMMA and WS_FLOOR of the JAX kernel.
+constexpr double WS_GAMMA = 0.01, WS_FLOOR = 1e-3;
+
 template <typename T> struct IpmWork {
   T *Hs, *Lm;                                 // nz x ld each
   T *s, *g, *lb, *ub, *z, *sl, *su, *zl, *zu;  // nz each
@@ -34,15 +45,36 @@ template <typename T> struct IpmWork {
   static constexpr int n_vectors = 17;
 };
 
-// H (nz x ld, full symmetric), g, lb, ub: the unscaled QP.  Writes the
-// solution to z_out (nz).
+// Elements of T the IPM's workspace takes: two nz x ld matrices, 17 vectors.
+MPCQ_HD int64_t ipm_ws_size(int nz) {
+  return 2 * int64_t(nz) * (nz + 1) + IpmWork<float>::n_vectors * int64_t(nz);
+}
+
+// Lays the IPM's workspace out from p (ld = nz + 1).
+template <typename T> MPCQ_HD IpmWork<T> ipm_work_at(T* p, int nz) {
+  const int ld = nz + 1;
+  IpmWork<T> w;
+  w.Hs = p; p += nz * ld;
+  w.Lm = p; p += nz * ld;
+  T** vecs[IpmWork<T>::n_vectors] = {&w.s, &w.g, &w.lb, &w.ub, &w.z, &w.sl, &w.su, &w.zl,
+                                     &w.zu, &w.res, &w.y, &w.sli, &w.sui, &w.dinv, &w.dz,
+                                     &w.dzl, &w.dzu};
+  for (int v = 0; v < IpmWork<T>::n_vectors; ++v) { *vecs[v] = p; p += nz; }
+  return w;
+}
+
+// H (nz x ld, full symmetric), g, lb, ub: the unscaled QP.  zl0, zu0: the
+// previous duals (unscaled), or null for the cold start.  Writes the solution
+// to z_out and the duals to zl_out, zu_out (nz each).
 template <typename T, typename Team>
 MPCQ_HD void ipm_box_solve(const Team& tm, int nz, int ld, int iters, const T* H,
-                           const T* g0, const T* lb0, const T* ub0, const IpmWork<T>& w,
-                           T* z_out) {
+                           const T* g0, const T* lb0, const T* ub0, const T* zl0,
+                           const T* zu0, const IpmWork<T>& w, T* z_out, T* zl_out,
+                           T* zu_out) {
   const int ln = tm.lane, NL = Team::size;
+  const bool warm = zl0 != nullptr;
 
-  // ---- Jacobi scaling and cold start ----
+  // ---- Jacobi scaling and the cold or warm start ----
   for (int i = ln; i < nz; i += NL) w.s[i] = m_rsqrt(floor_at(H[i * ld + i], T(1e-12)));
   tm.sync();
   for (int e = ln; e < nz * nz; e += NL) {
@@ -52,13 +84,23 @@ MPCQ_HD void ipm_box_solve(const Team& tm, int nz, int ld, int iters, const T* H
   for (int i = ln; i < nz; i += NL) {
     T s = w.s[i];
     T lb = lb0[i] / s, ub = ub0[i] / s;
-    T z = T(0.5) * (lb + ub);
+    T z, zl, zu;
+    if (warm) {
+      T width = ub - lb;
+      z = clip(T(0), lb + T(WS_GAMMA) * width, ub - T(WS_GAMMA) * width);
+      zl = floor_at(zl0[i] * s, T(WS_FLOOR));
+      zu = floor_at(zu0[i] * s, T(WS_FLOOR));
+    } else {
+      z = T(0.5) * (lb + ub);
+      zl = T(1);
+      zu = T(1);
+    }
     w.g[i] = g0[i] * s;
     w.lb[i] = lb;
     w.ub[i] = ub;
     w.z[i] = z;
-    w.zl[i] = T(1);
-    w.zu[i] = T(1);
+    w.zl[i] = zl;
+    w.zu[i] = zu;
     w.sl[i] = z - lb;
     w.su[i] = ub - z;
   }
@@ -146,7 +188,11 @@ MPCQ_HD void ipm_box_solve(const Team& tm, int nz, int ld, int iters, const T* H
     tm.sync();
   }
 
-  for (int i = ln; i < nz; i += NL) z_out[i] = clip(w.z[i], w.lb[i], w.ub[i]) * w.s[i];
+  for (int i = ln; i < nz; i += NL) {
+    z_out[i] = clip(w.z[i], w.lb[i], w.ub[i]) * w.s[i];
+    zl_out[i] = w.zl[i] / w.s[i];
+    zu_out[i] = w.zu[i] / w.s[i];
+  }
   tm.sync();
 }
 

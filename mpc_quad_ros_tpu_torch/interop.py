@@ -1,4 +1,4 @@
-"""Parameters carried across from the JAX package.
+"""Parameters, GP state and solver carries carried across from the JAX package.
 
 The JAX package's records are NamedTuples; handed over as numpy arrays
 (``{k: np.asarray(v) for k, v in state._asdict().items()}``) they become the
@@ -13,6 +13,7 @@ import torch
 
 from .models.params import QuadParams
 from .models.rgp import RGPState
+from .ops.sqp import SolverCarry
 
 
 def _from_numpy(cls, arrays: dict, device=None, dtype=None):
@@ -30,6 +31,16 @@ def quad_params_from_numpy(arrays: dict, device=None, dtype=None) -> QuadParams:
 
 def rgp_state_from_numpy(arrays: dict, device=None, dtype=None) -> RGPState:
     return _from_numpy(RGPState, arrays, device, dtype)
+
+
+def solver_carry_from_numpy(arrays: dict, device=None, dtype=None) -> SolverCarry:
+    """X and U, and the IPM duals zl, zu where given (absent or None: no
+    duals, as a carry made without `warm_start_duals`)."""
+    def tensor(v):
+        return None if v is None else torch.as_tensor(np.array(v), device=device, dtype=dtype)
+
+    return SolverCarry(X=tensor(arrays["X"]), U=tensor(arrays["U"]),
+                       zl=tensor(arrays.get("zl")), zu=tensor(arrays.get("zu")))
 
 
 def to_numpy(record) -> dict:

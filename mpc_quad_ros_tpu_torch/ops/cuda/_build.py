@@ -35,22 +35,28 @@ HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-fPIC")
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so no pointer is cut to 32 bits)
+WS_ENTRIES = ("mpcq_sqp_ws_bytes", "mpcq_sqp_step_ws_bytes", "mpcq_condense_ws_bytes",
+              "mpcq_box_qp_ws_bytes", "mpcq_riccati_ws_bytes")
 DEVICE_ENTRIES = {
     "mpcq_lin": [_P] * 6 + [_I, _P, _P, _I64, _I, _P, _P],
-    "mpcq_sqp_fused": [_P] * 11 + [_I64, _I, _I, _P],
-    "mpcq_sqp_ws_bytes": [_I],
+    "mpcq_sqp_fused": [_P] * 15 + [_I64, _I, _I, _P],
+    "mpcq_sqp_step": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I, _P],
+    "mpcq_condense": [_P] * 9 + [_I64, _I, _P],
+    "mpcq_box_qp": [_P] * 9 + [_I64, _I, _I, _P],
     "mpcq_riccati_ipm": [_P] * 11 + [_I64, _I, _I, _P],
-    "mpcq_riccati_ws_bytes": [_I],
+    **{name: [_I] for name in WS_ENTRIES},
 }
 HOST_ENTRIES = {
     "mpcq_lin_host_f64": [_P] * 6 + [_I, _P, _P, _I64, _I, _P],
-    "mpcq_sqp_fused_host_f64": [_P] * 11 + [_I64, _I, _I],
-    "mpcq_sqp_ws_bytes": [_I],
+    "mpcq_sqp_fused_host_f64": [_P] * 15 + [_I64, _I, _I],
+    "mpcq_sqp_step_host_f64": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I],
+    "mpcq_condense_host_f64": [_P] * 9 + [_I64, _I],
+    "mpcq_box_qp_host_f64": [_P] * 9 + [_I64, _I, _I],
     "mpcq_riccati_ipm_host_f64": [_P] * 11 + [_I64, _I, _I],
-    "mpcq_riccati_ws_bytes": [_I],
+    **{name: [_I] for name in WS_ENTRIES},
 }
 # entries that return something other than a CUDA status (int)
-RESTYPES = {"mpcq_sqp_ws_bytes": _I64, "mpcq_riccati_ws_bytes": _I64}
+RESTYPES = {name: _I64 for name in WS_ENTRIES}
 
 _device_lib = None
 

@@ -1,20 +1,31 @@
 """Batched SQP-RTI nonlinear MPC over the quadrotor horizon.
 
 Counterpart of ``mpc_quad_ros_tpu/ops/sqp.py`` for ``solve_batch``, with two
-QP backends, cold-started:
+QP backends:
 
-- ``qp_method="pdip"``: the Gauss-Newton step of the "hybrid" pipeline with
-  the condensed primal-dual interior point.  Kernel A
-  (``ops/cuda/lin_kernel.py``: x+ and J = [A | B] per scenario and stage),
-  then kernel B (``ops/cuda/sqp_fused_kernel.py``: condensing, IPM, KKT,
-  dX), with the glue of ``_gn_step_batch_hybrid`` between them.
+- ``qp_method="pdip"``: the condensed primal-dual interior point, through
+  one of three pipelines (``MPCConfig.pipeline``) that compute the same
+  step by the same device code:
+  - "hybrid" (``_gn_step_batch_hybrid``): kernel A
+    (``ops/cuda/lin_kernel.py``: x+ and J = [A | B] per scenario and
+    stage), the glue, then kernel B (``ops/cuda/sqp_fused_kernel.py``:
+    condensing, IPM, KKT, dX);
+  - "split" (``_gn_step_batch_tiled``): kernel A, the glue, kernel D
+    (``ops/cuda/condense_kernel.py``: H, g, M, d), kernel E
+    (``ops/cuda/qp_kernel.py``: the IPM), then the KKT and X + d + M z in
+    plain tensor code;
+  - "fused" (``_gn_step_batch_fused``): kernel F
+    (``ops/cuda/sqp_fused_kernel.py``: the whole step in one kernel).
+  With ``warm_start_duals`` the IPM starts from the duals of the previous
+  solve, carried in ``SolverCarry``.
 - ``qp_method="riccati"``: the long-horizon step.  Kernel A, then kernel C
   (``ops/cuda/riccati_kernel.py``: the Riccati-factorised box IPM, O(N) in
   the horizon), then a line search on the nonlinear rollout cost and the
-  projected-gradient KKT of that rollout (``_riccati_finish``).
+  projected-gradient KKT of that rollout (``_riccati_finish``).  It carries
+  the duals through untouched.
 - ``qp_method="auto"`` takes "pdip" below ``AUTO_RICCATI_MIN_N`` and
   "riccati" from there; "pdip" past ``FUSED_N_MAX`` warns and takes
-  "riccati".
+  "riccati", whatever the pipeline.
 
 Any batch size B is taken as it is.
 
@@ -35,18 +46,25 @@ import torch
 from ..models.augmented import fold_drag
 from ..models.dynamics import rk4_step
 from ..utils.containers import Tensors
+from .cuda.condense_kernel import condense_cost_from_J
 from .cuda.lin_kernel import linearize, model_constants
+from .cuda.qp_kernel import solve_box_qp_pdip_batch
 from .cuda.riccati_kernel import riccati_ipm_from_J
-from .cuda.sqp_fused_kernel import fused_sqp_from_J
+from .cuda.sqp_fused_kernel import fused_sqp_from_J, fused_sqp_step
+from .qp import qp_kkt_residual
 
-# Shared-memory ceiling of the condensed kernel B: one block holds the
-# scenario's workspace, mpcq_sqp_ws_bytes(N) = 4 (221 N + 26 nz + 26 +
-# 3 nz (nz + 1) + 21 nz) bytes with nz = 4 N, dominated by three nz x (nz+1)
-# matrices: 223,424 B at N = 30, 236,820 B at N = 31, against the 232,448 B
-# an H100 block may opt into.  Past it a dense-H method falls back to the
-# Riccati backend.  A constant, so the CPU and the card dispatch alike.
+# Shared-memory ceiling of the condensed kernels: one block holds the
+# scenario's workspace, kernel B's mpcq_sqp_ws_bytes(N) = 4 (221 N + 26 nz +
+# 26 + 3 nz (nz + 1) + 21 nz) bytes with nz = 4 N, dominated by three
+# nz x (nz+1) matrices: 223,424 B at N = 30, 236,820 B at N = 31, against the
+# 232,448 B an H100 block may opt into.  Kernel F's adds 52 N bytes (224,984 B
+# at N = 30), kernel E's three nz x (nz+1) matrices pass it at N = 34.  The
+# warm duals add nothing (read and written in device memory).  Past it a
+# dense-H method falls back to the Riccati backend, whatever the pipeline.  A
+# constant, so the CPU and the card dispatch alike.
 FUSED_N_MAX = 30
 DENSE_H_METHODS = ("pdip",)
+PIPELINES = ("hybrid", "split", "fused")
 # "auto" takes the Riccati backend from this horizon on.  Measured with
 # bench/crossover.py on an NVIDIA H100 80GB HBM3 at 700 W, B=16384, nodes
 # 0.1 s apart: the condensed step is the faster up to N=20 (191 against
@@ -70,6 +88,11 @@ class MPCConfig:
     sqp_iters: int = 1           # 1 == RTI
     qp_iters: int = 12
     qp_method: str = "pdip"      # "pdip" | "riccati" | "auto"
+    pipeline: str = "hybrid"     # "hybrid" | "split" | "fused" (condensed methods)
+    # Carry the IPM duals (zl, zu) across solves and warm-start the QP from
+    # them.  Off by default, as in the JAX package: it halves the
+    # factorisations on near-steady chains and loses on fast transients.
+    warm_start_duals: bool = False
 
     @property
     def dt(self) -> float:
@@ -99,10 +122,13 @@ class MPCConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SolverCarry(Tensors):
-    """Warm-started primal trajectory carried across RTI ticks."""
+    """Warm-started primal trajectory and IPM duals carried across RTI
+    ticks."""
 
-    X: torch.Tensor  # (B, N+1, 13)
-    U: torch.Tensor  # (B, N, 4)
+    X: torch.Tensor                  # (B, N+1, 13)
+    U: torch.Tensor                  # (B, N, 4)
+    zl: torch.Tensor | None = None   # (B, N*4) lower-bound multipliers
+    zu: torch.Tensor | None = None   # (B, N*4) upper-bound multipliers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,11 +141,17 @@ class MPCSolution(Tensors):
 
 
 def init_carry(cfg: MPCConfig, x0: torch.Tensor) -> SolverCarry:
-    """Every node at x0, every control at u_ref; x0 (..., 13)."""
+    """Every node at x0, every control at u_ref; x0 (..., 13).  With
+    `warm_start_duals`, unit duals: the IPM's cold-start value, so the first
+    solve is a (floored) cold start."""
     N = cfg.n_nodes
     X = x0[..., None, :].expand(x0.shape[:-1] + (N + 1, 13)).clone()
     U = torch.full(x0.shape[:-1] + (N, 4), cfg.u_ref, dtype=x0.dtype, device=x0.device)
-    return SolverCarry(X=X, U=U)
+    zl = zu = None
+    if cfg.warm_start_duals:
+        zl = torch.ones(x0.shape[:-1] + (N * 4,), dtype=x0.dtype, device=x0.device)
+        zu = torch.ones_like(zl)
+    return SolverCarry(X=X, U=U, zl=zl, zu=zu)
 
 
 class SQPSolver:
@@ -137,17 +169,23 @@ class SQPSolver:
         aug = fold_drag(aug)
         return rk4_step(lambda xx, uu: self.f(xx, uu, aug), x, u, dt)
 
-    def qp_inputs(self, X, U, x0, y_ref, y_ref_N, xp) -> tuple:
-        """Kernel B's inputs besides J, from the linearisation — the glue of
-        the JAX hybrid step: the defects r = xp - X[1:], dx0 = x0 - X[0],
-        ex0 = X - [y_ref; y_ref_N], gu = (U - u_ref) r dt, and the box
-        shifted to the increment, lb = u_lb - U, ub = u_ub - U."""
+    def step_inputs(self, X, U, x0, y_ref, y_ref_N) -> tuple:
+        """Kernel F's inputs besides (X, U) and the drag — the glue of the
+        JAX fused step: dx0 = x0 - X[0], ex0 = X - [y_ref; y_ref_N],
+        gu = (U - u_ref) r dt, and the box shifted to the increment,
+        lb = u_lb - U, ub = u_ub - U."""
         cfg = self.cfg
         B, N = U.shape[:2]
         Uf = U.reshape(B, N * 4)
         rw = (torch.tensor(cfg.r_cost, dtype=X.dtype, device=X.device) * cfg.stage_scale).repeat(N)
-        return (xp - X[:, 1:], x0 - X[:, 0], X - torch.cat([y_ref, y_ref_N[:, None]], dim=1),
+        return (x0 - X[:, 0], X - torch.cat([y_ref, y_ref_N[:, None]], dim=1),
                 (Uf - cfg.u_ref) * rw, cfg.u_lb - Uf, cfg.u_ub - Uf)
+
+    def qp_inputs(self, X, U, x0, y_ref, y_ref_N, xp) -> tuple:
+        """Kernel B's inputs besides J, from the linearisation — the glue of
+        the JAX hybrid step: the defects r = xp - X[1:], then
+        ``step_inputs``."""
+        return (xp - X[:, 1:],) + self.step_inputs(X, U, x0, y_ref, y_ref_N)
 
     def _linearize(self, X, U, aug):
         """Kernel A along (X, U): (xp, J)."""
@@ -172,18 +210,57 @@ class SQPSolver:
                 f"qp_method={m!r} at n_nodes={N} exceeds the condensed kernel's "
                 f"shared-memory ceiling (N={FUSED_N_MAX}); using the O(N) Riccati "
                 f"backend instead (qp_method='riccati' or 'auto' silences this).",
-                stacklevel=3)
+                stacklevel=4)
             return "riccati"
         return m
 
-    def _gn_step_batch_hybrid(self, X, U, x0, y_ref, y_ref_N, aug):
+    def _warm(self, zl):
+        return self.cfg.warm_start_duals and zl is not None
+
+    def _gn_step_batch_hybrid(self, X, U, zl, zu, x0, y_ref, y_ref_N, aug):
         """Kernel A, the glue, kernel B, the update."""
         cfg = self.cfg
+        warm = self._warm(zl)
         xp, J = self._linearize(X, U, aug)
-        q_s, q_term, rw_s = cfg.weight_tuples()
-        z, dX, kkt = fused_sqp_from_J(J, *self.qp_inputs(X, U, x0, y_ref, y_ref_N, xp),
-                                      q_s, q_term, rw_s, cfg.qp_iters)
-        return X + dX, U + z.reshape(U.shape), kkt
+        z, dX, kkt, zl_n, zu_n = fused_sqp_from_J(
+            J, *self.qp_inputs(X, U, x0, y_ref, y_ref_N, xp), *cfg.weight_tuples(),
+            cfg.qp_iters, duals=(zl, zu) if warm else None)
+        if warm:
+            zl, zu = zl_n, zu_n
+        return X + dX, U + z.reshape(U.shape), zl, zu, kkt
+
+    def _gn_step_batch_tiled(self, X, U, zl, zu, x0, y_ref, y_ref_N, aug):
+        """The "split" step: kernel A, the glue, kernel D (H, g, M, d), g +=
+        gu, kernel E (the IPM, warm or cold), then the KKT and X + (d + M z)
+        in plain tensor code, as the JAX split step leaves them to XLA."""
+        cfg = self.cfg
+        warm = self._warm(zl)
+        xp, J = self._linearize(X, U, aug)
+        r, dx0, ex0, gu, lb, ub = self.qp_inputs(X, U, x0, y_ref, y_ref_N, xp)
+        H, g, M, d = condense_cost_from_J(J, r, dx0, ex0, *cfg.weight_tuples())
+        g = g + gu
+        z, zl_n, zu_n = solve_box_qp_pdip_batch(H, g, lb, ub, cfg.qp_iters,
+                                                *((zl, zu) if warm else (None, None)))
+        if warm:
+            zl, zu = zl_n, zu_n
+        kkt = qp_kkt_residual(H, g, lb, ub, z)
+        B = X.shape[0]
+        dX = d + (M.reshape(B, -1, M.shape[-1]) @ z[..., None]).reshape(d.shape)
+        return X + dX, U + z.reshape(U.shape), zl, zu, kkt
+
+    def _gn_step_batch_fused(self, X, U, zl, zu, x0, y_ref, y_ref_N, aug):
+        """The "fused" step: kernel F, the update."""
+        cfg = self.cfg
+        warm = self._warm(zl)
+        if X.is_cuda and self._lin_consts is None:
+            self._lin_consts = model_constants(self.f.params, cfg.dt)
+        z, dX, kkt, zl_n, zu_n = fused_sqp_step(
+            X, U, *self.step_inputs(X, U, x0, y_ref, y_ref_N), aug, self.f, cfg.dt,
+            *cfg.weight_tuples(), cfg.qp_iters, duals=(zl, zu) if warm else None,
+            consts=self._lin_consts)
+        if warm:
+            zl, zu = zl_n, zu_n
+        return X + dX, U + z.reshape(U.shape), zl, zu, kkt
 
     def riccati_inputs(self, X, U, x0, y_ref, y_ref_N, xp) -> tuple:
         """Kernel C's inputs besides J — the glue of the JAX batched Riccati
@@ -196,14 +273,15 @@ class SQPSolver:
         return (xp - X[:, 1:], x0 - X[:, 0], qv * (X[:, :-1] - y_ref), rv * (U - cfg.u_ref),
                 pv * (X[:, -1] - y_ref_N), cfg.u_lb - U, cfg.u_ub - U)
 
-    def _gn_step_batch_riccati(self, X, U, x0, y_ref, y_ref_N, aug):
+    def _gn_step_batch_riccati(self, X, U, zl, zu, x0, y_ref, y_ref_N, aug):
         """Kernel A, the glue, kernel C, then the line search and the honest
-        KKT."""
+        KKT.  The IPM duals pass through untouched."""
         cfg = self.cfg
         xp, J = self._linearize(X, U, aug)
         dU, _ = riccati_ipm_from_J(J, *self.riccati_inputs(X, U, x0, y_ref, y_ref_N, xp),
                                    *cfg.weight_tuples(), cfg.qp_iters)
-        return self._riccati_finish(U, x0, y_ref, y_ref_N, aug, dU)
+        X, U, kkt = self._riccati_finish(U, x0, y_ref, y_ref_N, aug, dU)
+        return X, U, zl, zu, kkt
 
     def rollout(self, x0, U, aug=None) -> torch.Tensor:
         """(B, N+1, 13) states of the RK4 model from x0 (B, 13) under U."""
@@ -256,7 +334,8 @@ class SQPSolver:
                     y_ref_N: torch.Tensor, aug=None) -> tuple[SolverCarry, MPCSolution]:
         """One MPC solve for each of B scenarios.
 
-        carry   : warm-started (X (B, N+1, 13), U (B, N, 4))
+        carry   : warm-started (X (B, N+1, 13), U (B, N, 4)) and, with
+                  `warm_start_duals`, the IPM duals zl, zu (B, N*4)
         x0      : (B, 13) measured states
         y_ref   : (B, N, 13) stage references;  y_ref_N : (B, 13) terminal
         aug     : per-scenario RGPState (B, 3, ...) / FoldedDrag, or None
@@ -264,15 +343,28 @@ class SQPSolver:
         aug = fold_drag(aug)
         if aug is not None:
             aug = aug.map(lambda a: a.contiguous())
-        X, U = carry.X.contiguous(), carry.U.contiguous()
+        carry = carry.map(lambda a: a.contiguous())
+        X, U, zl, zu = carry.X, carry.U, carry.zl, carry.zu
         x0, y_ref, y_ref_N = x0.contiguous(), y_ref.contiguous(), y_ref_N.contiguous()
-        step = (self._gn_step_batch_riccati if self._resolve_qp_method() == "riccati"
-                else self._gn_step_batch_hybrid)
+        step = self._step()
         kkt = None
         for _ in range(self.cfg.sqp_iters):
-            X, U, kkt = step(X, U, x0, y_ref, y_ref_N, aug)
+            X, U, zl, zu, kkt = step(X, U, zl, zu, x0, y_ref, y_ref_N, aug)
         cost = self.ls_cost(X, U, y_ref, y_ref_N)
-        return SolverCarry(X=X, U=U), MPCSolution(X=X, U=U, cost=cost, kkt_residual=kkt)
+        return (SolverCarry(X=X, U=U, zl=zl, zu=zu),
+                MPCSolution(X=X, U=U, cost=cost, kkt_residual=kkt))
+
+    def _step(self):
+        """The Gauss-Newton step of this configuration: by the QP backend,
+        then, for the condensed methods, by the pipeline.  An unknown
+        pipeline raises (the JAX package falls back to "split")."""
+        pipeline = self.cfg.pipeline
+        if pipeline not in PIPELINES:
+            raise ValueError(f"unknown pipeline {pipeline!r}; expected one of {PIPELINES}")
+        if self._resolve_qp_method() == "riccati":
+            return self._gn_step_batch_riccati
+        return {"hybrid": self._gn_step_batch_hybrid, "split": self._gn_step_batch_tiled,
+                "fused": self._gn_step_batch_fused}[pipeline]
 
     def ls_cost(self, X, U, y_ref, y_ref_N) -> torch.Tensor:
         """LINEAR_LS cost of each trajectory (leading dims kept)."""

@@ -80,6 +80,46 @@ def trajectory_inputs(B: int, seed: int = 0, N: int = N):
     return X, U, rgp_batch(B, rng)
 
 
+def gn_step_inputs(B: int, seed: int = 0, N: int = N) -> dict:
+    """One Gauss-Newton step's inputs, f64, through the port's plain
+    linearisation of a perturbed trajectory: the solver, (X, U), the folded
+    drag and the RGP arrays, x0 and the references, and kernel B's inputs
+    J, r, dx0, ex0, gu, lb, ub."""
+    from mpc_quad_ros_tpu_torch.models import fold_drag, make_mpc_dynamics
+    from mpc_quad_ros_tpu_torch.ops.cuda.lin_kernel import linearize_plain
+    from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig, SQPSolver
+
+    X, U, rgp = trajectory_inputs(B, seed, N)
+    rng = np.random.default_rng(seed + 1)
+    x0 = X[:, 0] + 0.05 * rng.standard_normal((B, 13))
+    y_ref = X[:, 1:] + 0.3 * rng.standard_normal((B, N, 13))
+    cfg = MPCConfig(n_nodes=N, t_horizon=0.1 * N, u_ref=float(jax_params().hover_input))
+    solver = SQPSolver(cfg, make_mpc_dynamics(port_params()))
+    aug = fold_drag(interop.rgp_state_from_numpy(rgp)).map(lambda a: a.contiguous())
+    X, U, x0, y_ref = map(t, (X, U, x0, y_ref))
+    xp, J = linearize_plain(solver.f, X, U, aug, cfg.dt)
+    keys = ("r", "dx0", "ex0", "gu", "lb", "ub")
+    out = dict(zip(keys, solver.qp_inputs(X, U, x0, y_ref, y_ref[:, -1], xp)))
+    out = {k: v.contiguous() for k, v in out.items()}
+    return dict(solver=solver, X=X, U=U, aug=aug, rgp=rgp, x0=x0, y_ref=y_ref,
+                J=J.contiguous(), **out)
+
+
+def tiled(a) -> np.ndarray:
+    """(128, ...) -> (1, ..., 128): one lanes-last tile of the Pallas kernels."""
+    return np.moveaxis(np.asarray(a), 0, -1)[None]
+
+
+def untiled(a) -> np.ndarray:
+    """The inverse of ``tiled``."""
+    return np.moveaxis(np.asarray(a)[0], -1, 0)
+
+
+def ptr(tensor):
+    """A host entry's pointer argument: the data pointer, or None for null."""
+    return None if tensor is None else tensor.data_ptr()
+
+
 def host_library(tmp_dir: pathlib.Path):
     """The g++ build of the port's CUDA sources (their f64 host entry points)."""
     if shutil.which("g++") is None:

@@ -10,8 +10,10 @@ the CPU, float64, on the QP subproblems of perturbed trajectories.
   Cholesky codes; 12 IPM iterations amplify that rounding by ~1e3-1e4.
 - The whole plain step against that oracle plus ``qp_kkt_residual`` and
   X + d + M z, and the kernel's own source built with g++ for the host
-  against the plain step (1e-9), with NaN isolation between scenarios.
-- On a CUDA device (skipped here): the kernel against the f64 plain version."""
+  against the plain step (1e-9), cold and warm-started from the cold
+  solve's duals, with NaN isolation between scenarios.
+- On a CUDA device (skipped here): the kernel against the f64 plain version,
+  cold and warm."""
 
 import jax
 import jax.numpy as jnp
@@ -91,14 +93,14 @@ def test_condense_matches_jax_cost_from_lin(qp):
 def test_ipm_matches_jax_pdip_on_scaled_problem(qp):
     _, ref, _ = qp
     H, g, lb, ub = (ref[k] for k in ("H", "g", "lb", "ub"))
-    z = ipm_box_solve(*(t(a) for a in (H, g, lb, ub)), ITERS)
+    z, _, _ = ipm_box_solve(*(t(a) for a in (H, g, lb, ub)), ITERS)
     z_ref = jax.vmap(_jax_pdip_scaled)(H, g, lb, ub)
     np.testing.assert_allclose(z.numpy(), np.asarray(z_ref), rtol=0, atol=1e-9)
 
 
 def test_plain_step_matches_jax(qp):
     port, ref, (q, p, rw) = qp
-    z, dX, kkt = sqp_fused_kernel.fused_sqp_from_J(*_args(port), q, p, rw, ITERS)
+    z, dX, kkt, _, _ = sqp_fused_kernel.fused_sqp_from_J(*_args(port), q, p, rw, ITERS)
     H, g, lb, ub = (ref[k] for k in ("H", "g", "lb", "ub"))
     z_ref = jax.vmap(_jax_pdip_scaled)(H, g, lb, ub)
     dX_ref = ref["d"] + jnp.einsum("bkxz,bz->bkx", ref["M"], z_ref)
@@ -108,23 +110,23 @@ def test_plain_step_matches_jax(qp):
                                rtol=0, atol=1e-9)
 
 
-def _host_step(lib, args, q, p, rw):
+def _host_step(lib, args, q, p, rw, duals=None):
     Bn = args[0].shape[0]
-    z = torch.empty(Bn, 4 * N, dtype=torch.float64)
-    dX = torch.empty(Bn, N + 1, 13, dtype=torch.float64)
-    kkt = torch.empty(Bn, dtype=torch.float64)
-    w = torch.tensor(list(q) + list(p) + list(rw), dtype=torch.float64)
-    rc = lib.mpcq_sqp_fused_host_f64(*(a.data_ptr() for a in args), w.data_ptr(), z.data_ptr(),
-                                     dX.data_ptr(), kkt.data_ptr(), Bn, N, ITERS)
+    f64 = dict(dtype=torch.float64)
+    out = (torch.empty(Bn, 4 * N, **f64), torch.empty(Bn, N + 1, 13, **f64),
+           torch.empty(Bn, **f64), torch.empty(Bn, 4 * N, **f64), torch.empty(Bn, 4 * N, **f64))
+    w = torch.tensor(list(q) + list(p) + list(rw), **f64)
+    dual_ptrs = [d.data_ptr() for d in duals] if duals is not None else [None, None]
+    rc = lib.mpcq_sqp_fused_host_f64(*(a.data_ptr() for a in args), *dual_ptrs, w.data_ptr(),
+                                     *(o.data_ptr() for o in out), Bn, N, ITERS)
     assert rc == 0
-    return z, dX, kkt
+    return out
 
 
-def test_kernel_source_on_host_matches_plain(qp, host_lib):
-    port, _, (q, p, rw) = qp
+def _host_matches_plain_and_isolates(lib, port, q, p, rw, duals):
     args = _args(port)
-    ref = sqp_fused_kernel.fused_sqp_from_J_plain(*args, q, p, rw, ITERS)
-    out = _host_step(host_lib, args, q, p, rw)
+    ref = sqp_fused_kernel.fused_sqp_from_J_plain(*args, q, p, rw, ITERS, duals)
+    out = _host_step(lib, args, q, p, rw, duals)
     for a, b in zip(out, ref):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-9)
 
@@ -132,27 +134,49 @@ def test_kernel_source_on_host_matches_plain(qp, host_lib):
     bad = 2
     J_bad = port["J"].clone()
     J_bad[bad, 3, 5, 8] = float("nan")
-    out_bad = _host_step(host_lib, [J_bad] + args[1:], q, p, rw)
+    out_bad = _host_step(lib, [J_bad] + args[1:], q, p, rw, duals)
     keep = torch.arange(B) != bad
     assert torch.isnan(out_bad[0][bad]).any()
     for a, b in zip(out_bad, out):
         assert torch.equal(a[keep], b[keep])
 
 
-def test_warm_duals_are_not_ported(qp):
+def test_kernel_source_on_host_matches_plain(qp, host_lib):
     port, _, (q, p, rw) = qp
-    with pytest.raises(NotImplementedError):
-        sqp_fused_kernel.fused_sqp_from_J(*_args(port), q, p, rw, ITERS,
-                                          duals=(port["lb"], port["ub"]))
+    _host_matches_plain_and_isolates(host_lib, port, q, p, rw, None)
 
 
-def test_cuda_kernel_matches_f64_plain(qp):
+def _cold_duals(port, q, p, rw):
+    return sqp_fused_kernel.fused_sqp_from_J_plain(*_args(port), q, p, rw, ITERS)[3:]
+
+
+def test_kernel_source_on_host_warm_matches_plain(qp, host_lib):
+    """The warm path: duals of the cold solve in, the same step."""
+    port, _, (q, p, rw) = qp
+    duals = _cold_duals(port, q, p, rw)
+    z_cold = sqp_fused_kernel.fused_sqp_from_J_plain(*_args(port), q, p, rw, ITERS)[0]
+    z_warm = sqp_fused_kernel.fused_sqp_from_J_plain(*_args(port), q, p, rw, ITERS, duals)[0]
+    assert not torch.equal(z_warm, z_cold)          # the duals were used
+    _host_matches_plain_and_isolates(host_lib, port, q, p, rw, duals)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_cuda_kernel_matches_f64_plain(qp, warm):
     dev = require_cuda()
     port, _, (q, p, rw) = qp
     args = _args(port)
-    z_d, dX_d, kkt_d = sqp_fused_kernel.fused_sqp_from_J_plain(*args, q, p, rw, ITERS)
-    z, dX, kkt = sqp_fused_kernel.fused_sqp_from_J(
-        *[a.float().to(dev) for a in args], q, p, rw, ITERS)
-    # the 12-iteration f32 IPM floor on z, the f32 KKT floor on the max KKT
+    duals = _cold_duals(port, q, p, rw) if warm else None
+    z_d, dX_d, kkt_d, zl_d, zu_d = sqp_fused_kernel.fused_sqp_from_J_plain(
+        *args, q, p, rw, ITERS, duals)
+    f32 = lambda a: a.float().to(dev)
+    z, dX, kkt, zl, zu = sqp_fused_kernel.fused_sqp_from_J(
+        *map(f32, args), q, p, rw, ITERS, duals=None if duals is None else tuple(map(f32, duals)))
+    # the 12-iteration f32 IPM floor on z; on the max KKT, 1e-3 over the
+    # oracle's.  Warm-started from the duals of the same QP the f64 oracle
+    # converges (max KKT ~1e-6), and the f32 KKT sits at its own rounding
+    # floor: terms of Hz + g reach ~1e4, and an H100 run of kernel B at
+    # B=65536 read 2.9e-3 over the scenarios the f64 oracle solves to 1e-4.
+    floor = 3e-3 if warm else 0.0
     assert (z.double().cpu() - z_d).abs().max() < 4e-2
-    assert kkt.max().item() <= kkt_d.max().item() + 1e-3
+    assert kkt.max().item() <= max(kkt_d.max().item(), floor) + 1e-3
+    assert torch.isfinite(zl).all() and (zl > 0).all() and (zu > 0).all()
