@@ -15,14 +15,18 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    f32 and f64 plain versions, dX against the rollout of dU, NaN isolation;
 6. kernels D (condensing: H, g, M, d), E (the standalone box-QP IPM) and F
    (the whole Gauss-Newton step) at B=65536, N=10 against their f32 and f64
-   plain versions, NaN isolation; then kernels B and E warm-started with
-   the duals of a previous solve against the f64 plain warm IPM;
+   plain versions, NaN isolation; kernel J (condensing fed A and B, the
+   small-batch step's) at B=1 and B=127 against its plain versions, NaN
+   isolation and bitwise against kernel D; then kernels B and E
+   warm-started with the duals of a previous solve against the f64 plain
+   warm IPM;
 7. the card's solves against the f64 solves on the CPU, N=10 (each
    pipeline) and N=40, and the three pipelines against each other at
    B=65536;
 8. the N=10 slice: ``SQPSolver.solve_batch`` at B=65536, 20 chained
-   warm-started solves (solves/s), one-scenario latency (p50/p99 of 20 runs
-   of 50 chained solves, CUDA events);
+   warm-started solves (solves/s), one-scenario latency through the
+   small-batch step, kernels A, J and E (p50/p99 of 20 runs of 50 chained
+   solves, CUDA events);
 9. the closed learning loop: 16384 episodes x 100 ticks on the accelerating
    circle at 8 m/s (tick-solves/s, tracking error from tick 30 on);
 10. the "split" and "fused" slices: the N=10 slice's chained solves through
@@ -35,14 +39,33 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     warn and take kernel C;
 13. the backend crossover (``bench/crossover.py``) at B=16384, N = 10, 16,
     20, 30 (condensed and Riccati) and 80 (Riccati only), 2 chained solves
-    per row.
+    per row;
+14. kernel G (f32 multiply-add chains) against its f32 and f64 plain
+    versions in both accumulator homes, at the JAX shapes and at a small one
+    that runs the remainder trip, its SASS's FFMA count per instantiation (5
+    per chain: four steps a trip plus the remainder's one), then the card's
+    f32 rate at the JAX shapes (``bench/phases.py::vpu_peak``, which gives
+    kernel G's time; the register-resident rate must not pass 1.05 x 67
+    TFLOP/s, the shared-memory one must read below it);
+15. kernels H and I (the transpose probe) at B=16384, nz=40 against their
+    f32 and f64 plain versions with NaN isolation, then
+    ``bench/probe_hybrid.py::transpose_probe``, which gives their times;
+16. ``bench/phases.py::phase_table`` at B=16384 (kernel F's time per IPM
+    iteration, kernels A, D, E alone, utilisations against the rate of 14);
+17. ``bench/probe_hybrid.py::hybrid_breakdown`` and ``jfed_standalone`` at
+    B=16384 (kernel B alone, the hybrid step's glue);
+18. ``bench/suite.py::throughput`` over B = 1024, 4096, 16384, 65536;
+19. ``bench/probe_hybrid.py::riccati_profile``: kernel C alone, N = 10, 20,
+    40 at B=1024, 2, 6 and 12 IPM iterations;
+20. ``bench/headline.py::measure`` without the closed loop (phase 9 runs it).
 
 The launch counters are reset just before each path (phases 8-9, 10 split,
-10 fused, 11, 12) and read just after; each path must have launched its
-kernels and no other.  The plain versions are fenced off during phases
-8-13.  The line before the last lists every kernel with its launches, its
-time, its plain version's and its bound (``bench/bounds.py``); the last line
-is the device summary.
+10 fused, 11, 12, and the measured parts of 14-20) and read just after; each
+path must have launched its kernels and no other.  Every chained solve is
+timed by ``bench/phases.py::time_solves``.  The plain versions are
+fenced off on those paths.  The line before the last lists every kernel with
+its launches, its time, its plain version's and its bound
+(``bench/bounds.py``); the last line is the device summary.
 """
 
 from __future__ import annotations
@@ -50,6 +73,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -59,7 +84,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from mpc_quad_ros_tpu_torch.bench import bounds  # noqa: E402
+from mpc_quad_ros_tpu_torch.bench import bounds, headline, phases, probe_hybrid, suite  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.closed_loop import closed_loop  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.crossover import crossover_row  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.operating_point import N_BASIS, operating_point  # noqa: E402
@@ -68,6 +93,7 @@ from mpc_quad_ros_tpu_torch.models import fold_drag, make_mpc_dynamics  # noqa: 
 from mpc_quad_ros_tpu_torch.ops import qp_kkt_residual, sqp  # noqa: E402
 from mpc_quad_ros_tpu_torch.ops.cuda import (_build, condense_kernel, lin_kernel,  # noqa: E402
                                              qp_kernel, riccati_kernel, sqp_fused_kernel)
+from mpc_quad_ros_tpu_torch.ops.cuda.condense_common import split_AB  # noqa: E402
 
 SOLVE_B = 65536
 CLOSED_B = 16384
@@ -110,6 +136,27 @@ U_BOX_SLACK = 1e-6
 # The closed loop's tracking error: about twice the physics figure of the
 # JAX benchmark's run of the same scenario (0.022 m).
 ERR_MEAN_TOL = 0.05
+
+
+def fma_rel_tol(chains: int, steps: int) -> float:
+    """Kernel G against its f32 and f64 plain versions, relative to the
+    largest output: per step the kernel rounds once (FFMA) and the plain f32
+    version twice, and summing the chains adds one rounding each, so the
+    first-order bound is 3 (steps + chains) ulps of 2**-24.  At the JAX
+    shapes (256 steps; 16 and 8 chains) that is 4.9e-5 and 4.7e-5; on an
+    H100 the kernel read 1.1e-5 against f64 and 3.7e-6 against the plain f32
+    version at both."""
+    return 3 * (steps + chains) * 2.0 ** -24
+
+
+# The register-resident rate above this is impossible on an H100 (the data
+# sheet's 67 TFLOP/s f32 and 5 %): the count or the kernel would be wrong.
+FMA_RATE_CEILING = 1.05 * bounds.F32_FLOP_PER_S
+# Kernels H and I against their plain versions, relative to the largest
+# entry: one multiply-add per entry and repetition (FFMA against two
+# roundings), 4 repetitions.
+PROBE_REL_TOL = 1e-6
+BENCH_B = 16384
 T0 = time.perf_counter()
 
 
@@ -125,14 +172,7 @@ def emit(phase: str, **kw) -> None:
 
 def timed_ms(fn, reps: int = 5) -> float:
     """Mean milliseconds of fn() on the card (CUDA events, after a warm-up)."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return phases.device_seconds(fn, reps, "cuda") * 1e3
 
 
 def kernel_inputs(B: int, device, **kw):
@@ -177,12 +217,7 @@ def isolated(bad: int, outs, outs_bad) -> bool:
 
 
 def phase_environment() -> None:
-    try:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, timeout=60)
-        card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output"
-    except FileNotFoundError:
-        card = "nvidia-smi: not found"
+    card = phases.card()
     print(card, flush=True)
     emit("environment", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
@@ -193,6 +228,16 @@ def phase_environment() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def kernel_key(mangled: str) -> str:
+    """A kernel's short name from its mangled one, with a template's
+    arguments: "fma<16,1>" for mpcq_fma_kernel<16, true>."""
+    key = mangled.split("mpcq_")[1].split("_kernel")[0]
+    targs = re.search(r"_kernelI(.*?)EEv", mangled)
+    if targs is None:
+        return key
+    return key + "<" + ",".join(re.findall(r"L[a-z](\d+)E", targs[1] + "E")) + ">"
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     lib = _build.build()
@@ -201,7 +246,7 @@ def phase_build() -> None:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            regs[mangled.split("mpcq_")[1].split("_kernel")[0]] = entry = {}
+            regs[kernel_key(mangled)] = entry = {}
         elif "Function properties for" in line:
             props = line.split("for ")[1].strip()
         elif mangled and props == mangled and "spill stores" in line:
@@ -325,6 +370,37 @@ def phase_kernel_c(device) -> dict:
     return {"max_abs_err": err["du_kernel_vs_f64"], "ms": ms, "plain_ms": plain_ms, **work}
 
 
+def condense_stats(kernel, plain, args, w, poison) -> tuple:
+    """A condensing kernel's H, g, M, d against its f32 and f64 plain
+    versions, relative to each array's largest entry, H's exact symmetry,
+    and NaN isolation with scenario 7's inputs poisoned by `poison`:
+    (outputs, stats)."""
+    out = kernel(*args, *w)
+    ref = plain(*[a.double() for a in args], *w)
+    p32 = plain(*args, *w)
+    rel = lambda a, b: ((a.double() - b).abs().max() / b.abs().max()).item()
+    err = {f"{k}_kernel_vs_f64_rel": rel(a, b) for k, a, b in zip("HgMd", out, ref)}
+    err.update({f"{k}_plain_vs_f64_rel": rel(a, b) for k, a, b in zip("HgMd", p32, ref)})
+    err["max_abs_err"] = max((a.double() - b).abs().max().item() for a, b in zip(out, ref))
+    del ref, p32
+    err["H_symmetric"] = torch.equal(out[0], out[0].mT)
+    if out[0].shape[0] > 7:
+        err["nan_isolated"] = isolated(7, out, kernel(*poison(args, 7), *w))
+    return out, err
+
+
+def check_condense(name: str, err: dict) -> None:
+    check(all(v < COND_REL_TOL for k, v in err.items() if k.endswith("_rel")), f"{name}: {err}")
+    check(err["H_symmetric"], f"{name}: H is not exactly symmetric")
+    check(err.get("nan_isolated", True), f"{name}: a NaN scenario changed another scenario's outputs")
+
+
+def poison_first(args, bad):
+    first = args[0].clone()
+    first[bad, 3, 5, 8] = float("nan")
+    return [first] + list(args[1:])
+
+
 def phase_kernel_d(device) -> dict:
     """Condensing at the main path's shapes: H, g, M, d against the f32 and
     f64 plain versions, relative to each array's largest entry."""
@@ -332,31 +408,49 @@ def phase_kernel_d(device) -> dict:
     cfg = solver.cfg
     w = cfg.weight_tuples()
     args = step_args(solver, carry, x0, y_ref, aug)[:4]
-    out = condense_kernel.condense_cost_from_J(*args, *w)
-    ref = condense_kernel.condense_cost_from_J_plain(*[a.double() for a in args], *w)
-    plain = condense_kernel.condense_cost_from_J_plain(*args, *w)
-    rel = lambda a, b: ((a.double() - b).abs().max() / b.abs().max()).item()
-    err = {f"{k}_kernel_vs_f64_rel": rel(a, b) for k, a, b in zip("HgMd", out, ref)}
-    err.update({f"{k}_plain_vs_f64_rel": rel(a, b) for k, a, b in zip("HgMd", plain, ref)})
-    err["max_abs_err"] = max((a.double() - b).abs().max().item() for a, b in zip(out, ref))
-    del ref, plain
-    symmetric = torch.equal(out[0], out[0].mT)
-    bad = 7
-    J_bad = args[0].clone()
-    J_bad[bad, 3, 5, 8] = float("nan")
-    nan_isolated = isolated(bad, out, condense_kernel.condense_cost_from_J(J_bad, *args[1:], *w))
-    del J_bad
+    out, err = condense_stats(condense_kernel.condense_cost_from_J,
+                              condense_kernel.condense_cost_from_J_plain, args, w, poison_first)
+    del out
     ms = timed_ms(lambda: condense_kernel.condense_cost_from_J(*args, *w), reps=5)
     plain_ms = timed_ms(lambda: condense_kernel.condense_cost_from_J_plain(*args, *w), reps=2)
     work = bounds.condense_work(SOLVE_B, cfg.n_nodes)
-    emit("kernel_d", B=SOLVE_B, **err, H_symmetric=symmetric, nan_isolated=nan_isolated, ms=ms,
-         plain_ms=plain_ms, smem_bytes=_build.load_library().mpcq_condense_ws_bytes(cfg.n_nodes),
-         **work, tol_rel=COND_REL_TOL)
-    check(all(torch.isfinite(a).all() for a in out), "kernel D: non-finite output")
-    check(all(v < COND_REL_TOL for k, v in err.items() if k.endswith("_rel")), f"kernel D: {err}")
-    check(symmetric, "kernel D: H is not exactly symmetric")
-    check(nan_isolated, "kernel D: a NaN scenario changed another scenario's outputs")
+    emit("kernel_d", B=SOLVE_B, **err, ms=ms, plain_ms=plain_ms,
+         smem_bytes=_build.load_library().mpcq_condense_ws_bytes(cfg.n_nodes), **work,
+         tol_rel=COND_REL_TOL)
+    check_condense("kernel D", err)
     return {"max_abs_err": err["max_abs_err"], "ms": ms, "plain_ms": plain_ms, **work}
+
+
+def phase_kernel_j(device) -> dict:
+    """Condensing fed A and B, the small-batch step's, at the latency path's
+    B=1 (timed there) and at B = SMALL_BATCH - 1 with NaN isolation: against
+    its f32 and f64 plain versions, and bitwise against kernel D on the J
+    that A and B came from (the same code once staged)."""
+    rows, res = {}, None
+    for B in (1, sqp.SMALL_BATCH - 1):
+        solver, carry, x0, y_ref, aug = kernel_inputs(B, device)
+        cfg = solver.cfg
+        w = cfg.weight_tuples()
+        J, *tail = step_args(solver, carry, x0, y_ref, aug)[:4]
+        args = [a.contiguous() for a in split_AB(J)] + tail
+        out, err = condense_stats(condense_kernel.condense_cost_from_AB,
+                                  condense_kernel.condense_cost_from_AB_plain, args, w,
+                                  poison_first)
+        err["bitwise_kernel_d"] = all(torch.equal(a, b) for a, b in zip(
+            out, condense_kernel.condense_cost_from_J(J, *tail, *w)))
+        rows[B] = err
+        check_condense(f"kernel J, B={B}", err)
+        check(err["bitwise_kernel_d"], f"kernel J, B={B}: differs from kernel D on the same J")
+        if B == 1:
+            ms = timed_ms(lambda: condense_kernel.condense_cost_from_AB(*args, *w), reps=50)
+            plain_ms = timed_ms(lambda: condense_kernel.condense_cost_from_AB_plain(*args, *w),
+                                reps=5)
+            res = {"max_abs_err": err["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                   **bounds.condense_work(1, cfg.n_nodes)}
+    emit("kernel_j", **{f"B{B}_{k}": v for B, r in rows.items() for k, v in r.items()},
+         ms_at_B1=res["ms"], plain_ms_at_B1=res["plain_ms"], bound_ms_at_B1=res["bound_ms"],
+         tol_rel=COND_REL_TOL)
+    return res
 
 
 def phase_kernel_e(device, warm_start: bool = False) -> dict:
@@ -498,19 +592,8 @@ def phase_kernel_b_warm(device) -> dict:
 def time_chained(solver, carry0, x0, y_ref, rgp, iters: int, reps: int):
     """(solves/s over `reps` runs of `iters` chained solves after one, the
     last solution)."""
-    def chained(carry, n):
-        for _ in range(n):
-            carry, sol = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
-        return carry, sol
-
-    chained(carry0, 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        _, sol = chained(carry0, iters)
-    torch.cuda.synchronize()
-    B = x0.shape[0]
-    return B * iters * reps / (time.perf_counter() - t0), sol
+    times, sol = phases.time_solves(solver, carry0, x0, y_ref, rgp, iters, "cuda", reps)
+    return x0.shape[0] * len(times) / sum(times), sol
 
 
 def check_solution(name: str, sol, slack: float = 0.0) -> None:
@@ -579,26 +662,9 @@ def phase_slice(device) -> dict:
     solves_per_s, sol = time_chained(solver, carry0, x0, y_ref, rgp, iters=iters, reps=3)
     check_solution("slice", sol)
 
-    # one-scenario latency: 50 chained solves per CUDA-event-timed run
-    one = lambda a: a[:1]
-    c1, x1, y1, r1 = carry0.map(one), x0[:1], y_ref[:1], rgp.map(one)
-
-    def chained():
-        carry = c1
-        for _ in range(50):
-            carry, _ = solver.solve_batch(carry, x1, y1, y1[:, -1], r1)
-
-    chained()
-    lat = []
-    for _ in range(20):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        chained()
-        end.record()
-        end.synchronize()
-        lat.append(start.elapsed_time(end) / 50)
-    lat.sort()
-    p50, p99 = lat[len(lat) // 2], lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+    # one-scenario latency (the small-batch step): 50 chained solves per
+    # CUDA-event-timed run, 20 runs
+    p50, p99 = headline.one_scenario_latency(solver, carry0, x0, y_ref, rgp, device)
     emit("slice", B=SOLVE_B, chained_solves=iters, solves_per_s=solves_per_s,
          latency_p50_ms=p50, latency_p99_ms=p99, kkt_max=sol.kkt_residual.max().item())
     return {"solves_per_s": solves_per_s, "p50": p50, "p99": p99}
@@ -642,13 +708,7 @@ def phase_riccati_slice(device) -> dict:
     iters = 10
     solver, carry, x0, y_ref, rgp = operating_point(SOLVE_B, device, N=N_LONG, qp_method="auto")
     check(solver._resolve_qp_method() == "riccati", "riccati slice: auto did not pick riccati")
-    carry, _ = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        carry, sol = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
-    torch.cuda.synchronize()
-    solves_per_s = SOLVE_B * iters / (time.perf_counter() - t0)
+    solves_per_s, sol = time_chained(solver, carry, x0, y_ref, rgp, iters, reps=1)
     check(sol.U.shape == (SOLVE_B, N_LONG, 4) and torch.isfinite(sol.U).all()
           and torch.isfinite(sol.X).all(), "riccati slice: bad solve output")
     check(bool(((sol.U >= 0) & (sol.U <= 1)).all()), "riccati slice: controls left the box")
@@ -693,13 +753,163 @@ def phase_closed_loop(device) -> dict:
     return cl
 
 
+def sass_ffma_counts() -> dict:
+    """FFMA instructions in each instantiation of kernel G's SASS
+    (``cuobjdump -sass`` of the built library), or {} without cuobjdump."""
+    tool = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(_build.build())], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split()[0]
+        if "mpcq_fma_kernel" in name:
+            counts[kernel_key(name)] = len(re.findall(r"\bFFMA\b", block))
+    return counts
+
+
+def rel_err(a, b) -> float:
+    return ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+
+
+def phase_kernel_g(device) -> dict:
+    """Kernel G in both homes against its f32 and f64 plain versions at the
+    JAX shapes (the peak path's) and at a small shape whose 61 steps run the
+    remainder trip; its SASS.  Its time comes from the peak path."""
+    small = phases.fma_input(8, 4, device, seed=2)
+    cases = [("registers", small, 16, 61, True), ("smem", small, 8, 61, False)]
+    for (sublanes, chains, steps, grid), home, resident in (
+            (phases.REGISTER_SHAPE, "registers", True), (phases.STREAMING_SHAPE, "smem", False)):
+        cases.append((home, phases.fma_input(sublanes, grid, device), chains, steps, resident))
+    err, jax_abs = {}, []
+    for home, x, chains, steps, resident in cases:
+        out = phases.fma_chains(x, chains, steps, resident)
+        ref = phases.fma_chains_plain(x, chains, steps)
+        tag = f"{home}_n{x.numel()}_c{chains}_s{steps}"
+        row = {"vs_plain_rel": rel_err(out, ref),
+               "vs_f64_rel": rel_err(out, phases.fma_chains_plain(x.double(), chains, steps)),
+               "max_abs_vs_plain": (out - ref).abs().max().item(),
+               "tol_rel": fma_rel_tol(chains, steps)}
+        err[tag] = row
+        if x is not small:
+            jax_abs.append(row["max_abs_vs_plain"])
+        check(row["vs_plain_rel"] < row["tol_rel"] and row["vs_f64_rel"] < row["tol_rel"],
+              f"kernel G {tag}: {row}")
+        del out, ref
+    ffma = sass_ffma_counts()
+    sublanes, chains, steps, grid = phases.REGISTER_SHAPE
+    xr = phases.fma_input(sublanes, grid, device)
+    plain_ms = timed_ms(lambda: phases.fma_chains_plain(xr, chains, steps), reps=1)
+    work = bounds.fma_work(xr.numel(), chains, steps)
+    emit("kernel_g", **err, sass_ffma=ffma, plain_ms=plain_ms, **work)
+    expect = {f"fma<{c},{r}>": 5 * c for c in phases.FMA_CHAINS for r in (0, 1)}
+    check(not ffma or ffma == expect, f"kernel G: FFMA count {ffma}, expected {expect}")
+    return {"max_abs_err": max(jax_abs), "plain_ms": plain_ms, **work}
+
+
+def phase_peak(device) -> dict:
+    peak = phases.vpu_peak(device)
+    emit("peak", **peak, ceiling_flops_per_s=FMA_RATE_CEILING)
+    reg, smem = peak["register_resident_f32_flops_per_s"], peak["smem_streaming_f32_flops_per_s"]
+    check(0 < reg <= FMA_RATE_CEILING, f"peak: register-resident rate {reg} past {FMA_RATE_CEILING}")
+    check(0 < smem < 0.9 * reg, f"peak: the shared-memory rate {smem} is not below the "
+          f"register rate {reg}: the accumulators did not stream")
+    return peak
+
+
+def phase_kernels_hi(device) -> dict:
+    """Kernels H and I at the probe's shape against their f32 and f64 plain
+    versions, with NaN isolation.  Their times come from the transpose
+    path."""
+    B, nz, reps = BENCH_B, 40, 4
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn((B, nz, nz), generator=gen, device=device)
+    res = {}
+    for name, wrapper, plain in (("mirror_probe", probe_hybrid.mirror_probe,
+                                  probe_hybrid.mirror_probe_plain),
+                                 ("elem_probe", probe_hybrid.elem_probe,
+                                  probe_hybrid.elem_probe_plain)):
+        out = wrapper(x, reps)
+        ref = plain(x, reps)
+        err = {"vs_plain_rel": rel_err(out, ref), "vs_f64_rel": rel_err(out, plain(x.double(), reps)),
+               "max_abs_err": (out - ref).abs().max().item()}
+        bad = 7
+        x_bad = x.clone()
+        x_bad[bad, 9, 2] = float("nan")
+        nan_isolated = isolated(bad, (out,), (wrapper(x_bad, reps),))
+        plain_ms = timed_ms(lambda: plain(x, reps), reps=5)
+        work = bounds.transpose_work(B, nz, reps)
+        emit(name, B=B, nz=nz, reps=reps, **err, nan_isolated=nan_isolated, plain_ms=plain_ms,
+             **work, tol_rel=PROBE_REL_TOL)
+        check(err["vs_plain_rel"] < PROBE_REL_TOL and err["vs_f64_rel"] < PROBE_REL_TOL,
+              f"{name}: {err}")
+        check(nan_isolated, f"{name}: a NaN scenario changed another scenario's outputs")
+        res[name] = {"max_abs_err": err["max_abs_err"], "plain_ms": plain_ms, **work}
+    return res
+
+
+def finite(d) -> bool:
+    """Every float in a (nested) result is finite."""
+    if isinstance(d, dict):
+        return all(finite(v) for v in d.values())
+    if isinstance(d, (list, tuple)):
+        return all(finite(v) for v in d)
+    return not isinstance(d, float) or math.isfinite(d)
+
+
+def phase_transpose(device) -> dict:
+    probe = probe_hybrid.transpose_probe(device=device)
+    emit("transpose_probe", **probe)
+    check(finite(probe) and probe["mirror_s"] > 0 and probe["elem_s"] > 0,
+          f"transpose probe: {probe}")
+    return probe
+
+
+def phase_table(device, peak) -> None:
+    table = phases.phase_table(BENCH_B, device, peak=peak)
+    emit("phase_table", **table)
+    split = table["fused_split"]
+    check(finite(table) and split["ipm_per_iteration_s"] > 0 and split["non_ipm_intercept_s"] > 0,
+          f"phase table: {table}")
+
+
+def phase_breakdown(device) -> None:
+    brk = probe_hybrid.hybrid_breakdown(BENCH_B, device)
+    jf = probe_hybrid.jfed_standalone(BENCH_B, device=device)
+    emit("hybrid_breakdown", **brk, jfed=jf)
+    check(finite(brk) and finite(jf) and jf["ipm_slope_s"] > 0, f"breakdown: {brk}, {jf}")
+
+
+def phase_throughput(device) -> None:
+    rows = suite.throughput((1024, 4096, 16384, SOLVE_B), device=device)
+    emit("throughput", rows=rows)
+    check(finite(rows) and all(r["solves_per_s"] > 0 for r in rows), f"throughput: {rows}")
+
+
+def phase_riccati_profile(device, peak) -> None:
+    prof = probe_hybrid.riccati_profile(device=device, peak=peak)
+    emit("riccati_profile", **prof, cut="none: N = 10, 20, 40, B=1024, iterations 2, 6, 12")
+    # kernel C alone: every iteration runs a backward sweep, so time grows
+    # with the iteration count at every horizon
+    check(finite(prof) and all(prof[str(N)]["sweep_slope_s"] > 0 for N in (10, 20, 40)),
+          f"riccati profile: {prof}")
+
+
+def phase_headline(device, peak) -> None:
+    line = headline.measure(skip_closed=True, device=device, peak=peak)
+    emit("headline", **line)
+    check(finite(line) and line["value"] > 0 and line["latency_p50_ms"] > 0,
+          f"headline: {line}")
+
+
 def _fenced(name):
     def fence(*args, **kwargs):
         raise RuntimeError(f"{name}: the plain version ran on the CUDA path")
     return fence
 
 
-# kernels A-F: (wrapper with its launch counter, route, source, the TPU kernel
+# kernels A-J: (wrapper with its launch counter, route, source, the TPU kernel
 # it replaces)
 KERNELS = {
     "lin_kernel": (lin_kernel.linearize, "mpc_quad_ros_tpu_torch/csrc/lin_kernel.cu",
@@ -717,11 +927,22 @@ KERNELS = {
     "sqp_step_kernel": (sqp_fused_kernel.fused_sqp_step,
                         "mpc_quad_ros_tpu_torch/csrc/sqp_fused_kernel.cu",
                         "mpc_quad_ros_tpu/ops/pallas/sqp_fused_kernel.py:57"),
+    "condense_ab_kernel": (condense_kernel.condense_cost_from_AB,
+                           "mpc_quad_ros_tpu_torch/csrc/condense_kernel.cu",
+                           "mpc_quad_ros_tpu/ops/pallas/condense_kernel.py:37"),
+    "fma_peak": (phases.fma_chains, "mpc_quad_ros_tpu_torch/csrc/fma_peak.cu",
+                 "mpc_quad_ros_tpu/bench/phases.py:88"),
+    "mirror_probe": (probe_hybrid.mirror_probe, "mpc_quad_ros_tpu_torch/csrc/transpose_probe.cu",
+                     "mpc_quad_ros_tpu/bench/probe_hybrid.py:162"),
+    "elem_probe": (probe_hybrid.elem_probe, "mpc_quad_ros_tpu_torch/csrc/transpose_probe.cu",
+                   "mpc_quad_ros_tpu/bench/probe_hybrid.py:173"),
 }
 PLAINS = ((lin_kernel, "linearize_plain"), (sqp_fused_kernel, "fused_sqp_from_J_plain"),
           (riccati_kernel, "solve_ocp_box_riccati_ipm_plain"),
           (condense_kernel, "condense_cost_from_J_plain"), (qp_kernel, "ipm_box_solve"),
-          (sqp_fused_kernel, "fused_sqp_step_plain"))
+          (sqp_fused_kernel, "fused_sqp_step_plain"),
+          (condense_kernel, "condense_cost_from_AB_plain"), (phases, "fma_chains_plain"),
+          (probe_hybrid, "mirror_probe_plain"), (probe_hybrid, "elem_probe_plain"))
 
 
 def drive(*phases) -> dict:
@@ -745,7 +966,9 @@ def main() -> None:
     phase_build()
     res = {"lin_kernel": phase_kernel_a(device), "sqp_fused_kernel": phase_kernel_b(device),
            "riccati_ipm": phase_kernel_c(device), "condense_kernel": phase_kernel_d(device),
-           "qp_kernel": phase_kernel_e(device), "sqp_step_kernel": phase_kernel_f(device)}
+           "qp_kernel": phase_kernel_e(device), "sqp_step_kernel": phase_kernel_f(device),
+           "condense_ab_kernel": phase_kernel_j(device), "fma_peak": phase_kernel_g(device),
+           **phase_kernels_hi(device)}
     torch.cuda.empty_cache()
     phase_kernel_b_warm(device)
     phase_kernel_e(device, warm_start=True)
@@ -768,15 +991,36 @@ def main() -> None:
             "riccati": drive(lambda: phase_riccati_slice(device)),
         }
         phase_crossover(device)
+        torch.cuda.empty_cache()
+        peak, probe = {}, {}
+        paths["peak"] = drive(lambda: peak.update(phase_peak(device)))
+        paths["transpose"] = drive(lambda: probe.update(phase_transpose(device)))
+        paths["phases"] = drive(lambda: phase_table(device, peak))
+        paths["breakdown"] = drive(lambda: phase_breakdown(device))
+        paths["throughput"] = drive(lambda: phase_throughput(device))
+        paths["riccati_profile"] = drive(lambda: phase_riccati_profile(device, peak))
+        paths["headline"] = drive(lambda: phase_headline(device, peak))
     finally:
         for (mod, name), fn in zip(PLAINS, saved):
             setattr(mod, name, fn)
-    expect = {"hybrid": {"lin_kernel", "sqp_fused_kernel"},
+    # the kernels' times on the paths that measure them
+    res["fma_peak"]["ms"] = peak["register_resident_ms_per_launch"]
+    res["mirror_probe"]["ms"] = probe["mirror_s"] * 1e3
+    res["elem_probe"]["ms"] = probe["elem_s"] * 1e3
+    small_step = {"lin_kernel", "condense_ab_kernel", "qp_kernel"}
+    expect = {"hybrid": {"lin_kernel", "sqp_fused_kernel"} | small_step,
               "split": {"lin_kernel", "condense_kernel", "qp_kernel"},
               "fused": {"sqp_step_kernel"},
               "warm_chain": {"lin_kernel", "sqp_fused_kernel", "condense_kernel", "qp_kernel",
                              "sqp_step_kernel"},
-              "riccati": {"lin_kernel", "riccati_ipm"}}
+              "riccati": {"lin_kernel", "riccati_ipm"},
+              "peak": {"fma_peak"},
+              "transpose": {"mirror_probe", "elem_probe"},
+              "phases": {"sqp_step_kernel", "lin_kernel", "condense_kernel", "qp_kernel"},
+              "breakdown": {"lin_kernel", "sqp_fused_kernel"},
+              "throughput": {"lin_kernel", "sqp_fused_kernel"},
+              "riccati_profile": {"lin_kernel", "riccati_ipm"},
+              "headline": {"lin_kernel", "sqp_fused_kernel"} | small_step}
     for path, counts in paths.items():
         check(launched(counts) == expect[path],
               f"the {path} path launched {counts}, expected exactly {sorted(expect[path])}")

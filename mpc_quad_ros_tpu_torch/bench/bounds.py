@@ -78,7 +78,8 @@ def sqp_from_J_work(B: int, N: int, iters: int, warm: bool = False) -> dict:
 
 
 def condense_work(B: int, N: int) -> dict:
-    """Kernel D: H, g, M and d out."""
+    """Kernels D and J (J reads A and B, the same 221 floats a stage as J):
+    H, g, M and d out."""
     nz = NU * N
     n_in = N * NT * NX + N * NX + NX + (N + 1) * NX
     n_out = nz * nz + nz + (N + 1) * NX * nz + (N + 1) * NX
@@ -91,6 +92,19 @@ def box_qp_work(B: int, nz: int, iters: int, warm: bool = False) -> dict:
     return bound(F32 * B * (n_in + 3 * nz), B * ipm_flops(nz, iters))
 
 
+def step_flops(N: int, nb: int, iters: int) -> dict:
+    """Kernel F's operations per scenario by phase: kernel A's linearisation,
+    the condensing with g += gu, the IPM (its scaling and one iteration),
+    the KKT residual and the dX recurrence."""
+    nz = NU * N
+    out = {"lin": lin_work(1, N, nb)["flops"], "condense": condense_flops(N) + nz,
+           "ipm_setup": ipm_flops(nz, 0), "ipm_per_iter": ipm_flops(nz, 1) - ipm_flops(nz, 0),
+           "kkt_and_dX": _step_tail_flops(N)}
+    out["ipm_total"] = ipm_flops(nz, iters)
+    out["total"] = out["lin"] + out["condense"] + out["ipm_total"] + out["kkt_and_dX"]
+    return out
+
+
 def sqp_step_work(B: int, N: int, nb: int, iters: int, warm: bool = False) -> dict:
     """Kernel F: kernel A's work per scenario, then kernel B's, with
     (X, U, drag) in place of J and r."""
@@ -98,9 +112,7 @@ def sqp_step_work(B: int, N: int, nb: int, iters: int, warm: bool = False) -> di
     n_in = ((N + 1) * NX + N * NU + 3 * (2 * nb + 2) + NX + (N + 1) * NX + 3 * nz
             + (2 * nz if warm else 0))
     n_out = nz + (N + 1) * NX + 1 + 2 * nz
-    lin_flops = lin_work(1, N, nb)["flops"]
-    flops = lin_flops + condense_flops(N) + nz + ipm_flops(nz, iters) + _step_tail_flops(N)
-    return bound(F32 * B * (n_in + n_out), B * flops)
+    return bound(F32 * B * (n_in + n_out), B * step_flops(N, nb, iters)["total"])
 
 
 def riccati_work(B: int, N: int, iters: int) -> dict:
@@ -112,3 +124,16 @@ def riccati_work(B: int, N: int, iters: int) -> dict:
     n_in = N * NT * NX + N * NX + NX + N * NX + N * NU + NX + 2 * N * NU
     n_out = N * NU + (N + 1) * NX
     return bound(F32 * B * (n_in + n_out), B * N * iters * per_stage)
+
+
+def fma_work(elements: int, chains: int, steps: int) -> dict:
+    """Kernel G: each element read and written once; per element `chains`
+    chains of `steps` multiply-adds, `chains` + 1 multiplies to start them and
+    `chains` - 1 adds to sum them."""
+    return bound(2 * F32 * elements, elements * (2 * chains * steps + 2 * chains))
+
+
+def transpose_work(B: int, nz: int, reps: int) -> dict:
+    """Kernels H and I: the (B, nz, nz) tiles read and written once; per
+    repetition one multiply-add on each of a strict triangle's entries."""
+    return bound(2 * F32 * B * nz * nz, B * reps * nz * (nz - 1))

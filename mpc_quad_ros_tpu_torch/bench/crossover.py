@@ -23,21 +23,19 @@ import torch
 
 from ..ops.sqp import FUSED_N_MAX
 from .operating_point import operating_point
+from .phases import time_solves
 
 
-def time_solves(B: int, N: int, qp_method: str, reps: int, device) -> tuple[float, float]:
-    """(milliseconds per batched solve over `reps` chained solves after one,
-    share of scenarios with non-finite controls at the end)."""
+def time_backend(B: int, N: int, qp_method: str, reps: int, device) -> tuple[float, float]:
+    """(milliseconds per batched solve over `reps` chained solves that
+    follow a first solve (``phases.time_solves``), share of scenarios with
+    non-finite controls after the last: solve 1 + `reps` from the initial
+    carry, the count behind ``AUTO_RICCATI_MIN_N``)."""
     solver, carry, x0, y_ref, rgp = operating_point(B, device, N=N, qp_method=qp_method)
     carry, _ = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        carry, sol = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
-    end.record()
-    torch.cuda.synchronize()
+    times, sol = time_solves(solver, carry, x0, y_ref, rgp, reps, device)
     bad = (~torch.isfinite(sol.U)).flatten(1).any(1).double().mean().item()
-    return start.elapsed_time(end) / reps, bad
+    return times[0] * 1e3, bad
 
 
 def crossover_row(B: int, N: int, reps: int = 3, device="cuda") -> dict:
@@ -48,7 +46,7 @@ def crossover_row(B: int, N: int, reps: int = 3, device="cuda") -> dict:
             row[f"{key}_note"] = (f"shared-memory ceiling: N > FUSED_N_MAX = {FUSED_N_MAX}; "
                                   "solve_batch falls back to the Riccati backend")
             continue
-        ms, bad = time_solves(B, N, method, reps, device)
+        ms, bad = time_backend(B, N, method, reps, device)
         row[f"{key}_ms"] = ms
         row[f"{key}_solves_per_s"] = B / ms * 1e3
         row[f"{key}_nonfinite_share"] = bad

@@ -17,12 +17,15 @@ N_BASIS = 10
 
 def operating_point(B: int, device, dtype=torch.float32, seed: int = 0, mu_scale: float = 0.0,
                     N: int = 10, qp_method: str = "pdip", pipeline: str = "hybrid",
-                    warm_start_duals: bool = False, qp_iters: int = 12):
+                    warm_start_duals: bool = False, qp_iters: int = 12,
+                    step_reference: bool = True):
     """(solver, carry, x0, y_ref, rgp) of B scenarios.  The RGP posterior
     mean is mu_scale * N(0, 1) (0 in the benchmark).  Drawn in f64 and
     rounded to f32 whatever `dtype` is, so an f64 run sees the very inputs of
     the f32 one.  `qp_method`, `pipeline`, `warm_start_duals` and `qp_iters`
-    go to the solver's ``MPCConfig``."""
+    go to the solver's ``MPCConfig``.  With `step_reference` False the
+    reference is x0 at every node, as in the JAX package's phase split and
+    suite (``bench/phases.py:163-177``, ``bench/suite.py:25-42``)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     f64 = torch.float64
     p = hummingbird_params(dtype=torch.float32).map(lambda a: a.to(device, dtype))
@@ -35,8 +38,9 @@ def operating_point(B: int, device, dtype=torch.float32, seed: int = 0, mu_scale
     x0[:, 2] = 3.0
     x0[:, 7:10] += -3.0 + 6.0 * torch.rand((B, 3), generator=gen, dtype=f64)
     y_ref = x0[:, None, :].repeat(1, N, 1)
-    step = 1.0 + 4.0 * torch.rand((B, 1), generator=gen, dtype=f64)
-    y_ref[:, :, 0] += torch.linspace(0, 1, N, dtype=f64)[None, :] * step
+    if step_reference:
+        step = 1.0 + 4.0 * torch.rand((B, 1), generator=gen, dtype=f64)
+        y_ref[:, :, 0] += torch.linspace(0, 1, N, dtype=f64)[None, :] * step
     basis = torch.linspace(-10, 10, N_BASIS, dtype=f64).expand(B, 3, N_BASIS)
     rgp = rgp_init(basis, theta=(3.0, 0.1, 0.01))
     rgp = rgp.replace(mu_g=mu_scale * torch.randn((B, 3, N_BASIS), generator=gen, dtype=f64))

@@ -27,7 +27,11 @@ QP backends:
   "riccati" from there; "pdip" past ``FUSED_N_MAX`` warns and takes
   "riccati", whatever the pipeline.
 
-Any batch size B is taken as it is.
+Any batch size B is taken as it is.  Below ``SMALL_BATCH`` scenarios the
+condensed methods take the small-batch step (``_gn_step_batch_soa``)
+whatever the pipeline, as the JAX package's ``solve_batch`` does: the
+"split" step with kernel J (``ops/cuda/condense_kernel.py``: condensing fed
+the A and B blocks of kernel A's J) in place of kernel D.
 
 Cost: LINEAR_LS with W = diag(q_pos, q_quat, q_vel, q_rate, r) and the
 reference's quaternion-weight mean quirk; stage cost x dt, terminal cost
@@ -46,7 +50,8 @@ import torch
 from ..models.augmented import fold_drag
 from ..models.dynamics import rk4_step
 from ..utils.containers import Tensors
-from .cuda.condense_kernel import condense_cost_from_J
+from .cuda.condense_common import split_AB
+from .cuda.condense_kernel import condense_cost_from_AB, condense_cost_from_J
 from .cuda.lin_kernel import linearize, model_constants
 from .cuda.qp_kernel import solve_box_qp_pdip_batch
 from .cuda.riccati_kernel import riccati_ipm_from_J
@@ -73,6 +78,10 @@ PIPELINES = ("hybrid", "split", "fused")
 # (0.4 % at N=16, 10 % at N=18, 39 % at N=20, none at N=10-14), and the
 # Riccati step for none.
 AUTO_RICCATI_MIN_N = 16
+# Batches below this take the small-batch step, the JAX package's lane-major
+# route for B < 128 (``mpc_quad_ros_tpu/ops/sqp.py:899, 946-947``): its
+# condensing kernel is fed A and B (``_assemble_batch_soa``).
+SMALL_BATCH = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,15 +238,21 @@ class SQPSolver:
             zl, zu = zl_n, zu_n
         return X + dX, U + z.reshape(U.shape), zl, zu, kkt
 
-    def _gn_step_batch_tiled(self, X, U, zl, zu, x0, y_ref, y_ref_N, aug):
+    def _gn_step_batch_tiled(self, X, U, zl, zu, x0, y_ref, y_ref_N, aug, from_AB=False):
         """The "split" step: kernel A, the glue, kernel D (H, g, M, d), g +=
         gu, kernel E (the IPM, warm or cold), then the KKT and X + (d + M z)
-        in plain tensor code, as the JAX split step leaves them to XLA."""
+        in plain tensor code, as the JAX split step leaves them to XLA.
+        `from_AB` splits J into its A and B blocks and condenses them with
+        kernel J in place of kernel D."""
         cfg = self.cfg
         warm = self._warm(zl)
         xp, J = self._linearize(X, U, aug)
         r, dx0, ex0, gu, lb, ub = self.qp_inputs(X, U, x0, y_ref, y_ref_N, xp)
-        H, g, M, d = condense_cost_from_J(J, r, dx0, ex0, *cfg.weight_tuples())
+        if from_AB:
+            A, Bm = (a.contiguous() for a in split_AB(J))
+            H, g, M, d = condense_cost_from_AB(A, Bm, r, dx0, ex0, *cfg.weight_tuples())
+        else:
+            H, g, M, d = condense_cost_from_J(J, r, dx0, ex0, *cfg.weight_tuples())
         g = g + gu
         z, zl_n, zu_n = solve_box_qp_pdip_batch(H, g, lb, ub, cfg.qp_iters,
                                                 *((zl, zu) if warm else (None, None)))
@@ -247,6 +262,12 @@ class SQPSolver:
         B = X.shape[0]
         dX = d + (M.reshape(B, -1, M.shape[-1]) @ z[..., None]).reshape(d.shape)
         return X + dX, U + z.reshape(U.shape), zl, zu, kkt
+
+    def _gn_step_batch_soa(self, X, U, zl, zu, x0, y_ref, y_ref_N, aug):
+        """The small-batch step (B < SMALL_BATCH, every pipeline): the JAX
+        package's ``_assemble_batch_soa`` route — kernel A, A and B apart,
+        kernel J, then kernel E, the KKT and X + (d + M z), as "split"."""
+        return self._gn_step_batch_tiled(X, U, zl, zu, x0, y_ref, y_ref_N, aug, from_AB=True)
 
     def _gn_step_batch_fused(self, X, U, zl, zu, x0, y_ref, y_ref_N, aug):
         """The "fused" step: kernel F, the update."""
@@ -346,7 +367,7 @@ class SQPSolver:
         carry = carry.map(lambda a: a.contiguous())
         X, U, zl, zu = carry.X, carry.U, carry.zl, carry.zu
         x0, y_ref, y_ref_N = x0.contiguous(), y_ref.contiguous(), y_ref_N.contiguous()
-        step = self._step()
+        step = self._step(X.shape[0])
         kkt = None
         for _ in range(self.cfg.sqp_iters):
             X, U, zl, zu, kkt = step(X, U, zl, zu, x0, y_ref, y_ref_N, aug)
@@ -354,15 +375,18 @@ class SQPSolver:
         return (SolverCarry(X=X, U=U, zl=zl, zu=zu),
                 MPCSolution(X=X, U=U, cost=cost, kkt_residual=kkt))
 
-    def _step(self):
-        """The Gauss-Newton step of this configuration: by the QP backend,
-        then, for the condensed methods, by the pipeline.  An unknown
-        pipeline raises (the JAX package falls back to "split")."""
+    def _step(self, B: int):
+        """The Gauss-Newton step of this configuration at batch B: by the QP
+        backend, then, for the condensed methods, the small-batch step below
+        SMALL_BATCH and the pipeline's from there.  An unknown pipeline
+        raises (the JAX package falls back to "split")."""
         pipeline = self.cfg.pipeline
         if pipeline not in PIPELINES:
             raise ValueError(f"unknown pipeline {pipeline!r}; expected one of {PIPELINES}")
         if self._resolve_qp_method() == "riccati":
             return self._gn_step_batch_riccati
+        if B < SMALL_BATCH:
+            return self._gn_step_batch_soa
         return {"hybrid": self._gn_step_batch_hybrid, "split": self._gn_step_batch_tiled,
                 "fused": self._gn_step_batch_fused}[pipeline]
 

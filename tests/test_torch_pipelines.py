@@ -2,9 +2,12 @@
 (``MPCConfig.pipeline``, ``MPCConfig.warm_start_duals``) on the CPU.
 
 - Every pipeline x warm_start_duals, one solve at the benchmark's operating
-  point with RGP drag (f64, plain versions of the kernels, which share their
-  code): U bitwise equal across "hybrid", "split" and "fused"; X within
-  1e-12 ("split" forms X + (d + M z), the others the dX recurrence).
+  point with RGP drag at B = SMALL_BATCH, where each pipeline takes its own
+  step (f64, plain versions of the kernels, which share their code): U
+  bitwise equal across "hybrid", "split" and "fused"; X within 1e-12
+  ("split" forms X + (d + M z), the others the dX recurrence).
+- The small-batch step: below SMALL_BATCH every pipeline takes it, and it is
+  the "split" step with kernel J's condensing fed A and B (bitwise).
 - The duals: shape (B, N*4) in the carry, carried through two chained solves
   (they move, they change the second solve, they stay finite and positive);
   None without the flag; the Riccati step passes them through untouched.
@@ -21,8 +24,9 @@
   each, so these two are in the slow tier; the kernels they run are held
   against the Pallas kernels in tier 1 (test_torch_condense_kernel,
   test_torch_qp_kernel, test_torch_fused_step).
-- On a CUDA device (skipped here): "split" launches kernels A, D and E only,
-  "fused" kernel F only, warm and cold."""
+- On a CUDA device (skipped here): at B=128 "split" launches kernels A, D
+  and E only, "fused" kernel F only; at B=64 every pipeline launches A, J and
+  E only; warm and cold."""
 
 import dataclasses
 
@@ -38,17 +42,19 @@ from mpc_quad_ros_tpu.ops import SQPSolver as JaxSolver
 from mpc_quad_ros_tpu.ops.sqp import init_carry as jax_init_carry
 from mpc_quad_ros_tpu_torch import interop
 from mpc_quad_ros_tpu_torch.bench.regulation import regulation_chain
-from mpc_quad_ros_tpu_torch.models import make_mpc_dynamics
+from mpc_quad_ros_tpu_torch.models import fold_drag, make_mpc_dynamics
 from mpc_quad_ros_tpu_torch.ops.cuda import (condense_kernel, lin_kernel, qp_kernel,
                                              riccati_kernel, sqp_fused_kernel)
-from mpc_quad_ros_tpu_torch.ops.sqp import FUSED_N_MAX, MPCConfig, SQPSolver, init_carry
+from mpc_quad_ros_tpu_torch.ops.sqp import (FUSED_N_MAX, SMALL_BATCH, MPCConfig, SQPSolver,
+                                            init_carry)
 
 from test_torch_common import jax_params, jax_rgp, port_params, require_cuda, solve_inputs, t
 
 B = 8
 COUNTERS = (lin_kernel.linearize, sqp_fused_kernel.fused_sqp_from_J,
             riccati_kernel.riccati_ipm_from_J, condense_kernel.condense_cost_from_J,
-            qp_kernel.solve_box_qp_pdip_batch, sqp_fused_kernel.fused_sqp_step)
+            qp_kernel.solve_box_qp_pdip_batch, sqp_fused_kernel.fused_sqp_step,
+            condense_kernel.condense_cost_from_AB)
 
 
 def _solver(params, **cfg_kw):
@@ -71,7 +77,7 @@ def _solve(inp, carry=None, params=None, **cfg_kw):
 def solves():
     """{(pipeline, warm): (carry, sol)} of one solve, and a second chained
     solve of each warm pipeline."""
-    inp = solve_inputs(B, seed=81)
+    inp = solve_inputs(SMALL_BATCH, seed=81)
     first = {(pipe, warm): _solve(inp, pipeline=pipe, warm_start_duals=warm)
              for pipe in ("hybrid", "split", "fused") for warm in (False, True)}
     second = {pipe: _solve(inp, first[(pipe, True)][0], pipeline=pipe, warm_start_duals=True)
@@ -98,7 +104,7 @@ def test_duals_round_trip_two_solves(solves, pipeline):
     inp, first, second = solves
     c1, _ = first[(pipeline, True)]
     c2, s2 = second[pipeline]
-    assert c1.zl.shape == c1.zu.shape == (B, 40) and c2.zl.shape == (B, 40)
+    assert c1.zl.shape == c1.zu.shape == (SMALL_BATCH, 40) and c2.zl.shape == (SMALL_BATCH, 40)
     assert (c2.zl - c1.zl).abs().max() > 1e-6               # the duals moved
     for zd in (c1.zl, c1.zu, c2.zl, c2.zu):
         assert torch.isfinite(zd).all() and (zd > 0).all()
@@ -129,8 +135,29 @@ def test_pdip_past_the_ceiling_takes_riccati_under_every_pipeline(pipeline):
     N = FUSED_N_MAX + 1
     solver = _solver(port_params(), n_nodes=N, t_horizon=0.1 * N, pipeline=pipeline)
     with pytest.warns(UserWarning, match="shared-memory ceiling"):
-        step = solver._step()
+        step = solver._step(SMALL_BATCH)
     assert step == solver._gn_step_batch_riccati
+
+
+@pytest.mark.parametrize("pipeline", ["hybrid", "split", "fused"])
+def test_small_batches_take_the_small_batch_step(pipeline):
+    solver = _solver(port_params(), pipeline=pipeline)
+    assert solver._step(SMALL_BATCH - 1) == solver._gn_step_batch_soa
+    own = {"hybrid": solver._gn_step_batch_hybrid, "split": solver._gn_step_batch_tiled,
+           "fused": solver._gn_step_batch_fused}[pipeline]
+    assert solver._step(SMALL_BATCH) == own
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_small_batch_step_is_the_split_step(warm):
+    inp = solve_inputs(B, seed=89)
+    solver = _solver(port_params(), warm_start_duals=warm)
+    x0, y_ref = t(inp["x0"]), t(inp["y_ref"])
+    aug = fold_drag(interop.rgp_state_from_numpy(inp["rgp"])).map(lambda a: a.contiguous())
+    c = init_carry(solver.cfg, x0)
+    args = (c.X, c.U, c.zl, c.zu, x0, y_ref, y_ref[:, -1], aug)
+    for a, b in zip(solver._gn_step_batch_soa(*args), solver._gn_step_batch_tiled(*args)):
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_unknown_pipeline_raises():
@@ -204,11 +231,13 @@ def test_fused_cold_matches_jax_solve_batch():
 
 
 @pytest.mark.parametrize("warm", [False, True])
-@pytest.mark.parametrize("pipeline, launched", [("split", [1, 0, 0, 1, 1, 0]),
-                                                ("fused", [0, 0, 0, 0, 0, 1])])
-def test_cuda_pipeline_launches_its_kernels(pipeline, launched, warm):
+@pytest.mark.parametrize("pipeline, batch, launched", [
+    ("split", SMALL_BATCH, [1, 0, 0, 1, 1, 0, 0]),
+    ("fused", SMALL_BATCH, [0, 0, 0, 0, 0, 1, 0]),
+    ("hybrid", 64, [1, 0, 0, 0, 1, 0, 1])])
+def test_cuda_pipeline_launches_its_kernels(pipeline, batch, launched, warm):
     dev = require_cuda()
-    inp = solve_inputs(64, seed=87)
+    inp = solve_inputs(batch, seed=87)
     p32 = port_params().map(lambda a: a.float().to(dev))
     for fn in COUNTERS:
         fn.launches = 0
