@@ -6,7 +6,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device -> exit 1 (there is no CPU fallback);
-2. build: nvcc compiles ``mpc_quad_ros_tpu_torch/csrc/*.cu`` (timed);
+2. build: nvcc compiles ``mpc_quad_ros_tpu_torch/csrc/*.cu`` (timed); then
+   one line per kernel B, E and F at N = 10 and 40 (nz = 40 and 160): shared
+   memory per block, registers and spills (the build log's ``-Xptxas -v``),
+   resident blocks of one warp per SM (the occupancy API); kernel B must
+   keep at least 12 warps resident per SM at N = 10;
 3. kernel A (RK4 linearisation) against its plain PyTorch version, in f32
    and against the f64 plain version, at the main-path shapes;
 4. kernel B (condense + IPM + KKT + dX) against the f64 plain version, the
@@ -19,10 +23,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    small-batch step's) at B=1 and B=127 against its plain versions, NaN
    isolation and bitwise against kernel D; then kernels B and E
    warm-started with the duals of a previous solve against the f64 plain
-   warm IPM;
+   warm IPM; then kernel B at N=40 (B=512; a 1 s horizon at 25 ms nodes,
+   hover with velocities U(-0.5, 0.5) m/s and y_ref = x0, where the f32 plain
+   version loses no scenario) against its f32 and f64 plain versions;
 7. the card's solves against the f64 solves on the CPU, N=10 (each
    pipeline) and N=40, and the three pipelines against each other at
-   B=65536;
+   B=65536 (U bitwise equal);
 8. the N=10 slice: ``SQPSolver.solve_batch`` at B=65536, 20 chained
    warm-started solves (solves/s), one-scenario latency through the
    small-batch step, kernels A, J and E (p50/p99 of 20 runs of 50 chained
@@ -35,8 +41,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     ticks: cold at 12 IPM iterations, warm at 6 and at 12 (hybrid), then one
     warm tick through "split" and one through "fused";
 12. the Riccati slice: ``solve_batch(qp_method="auto")`` at N=40, B=65536,
-    10 chained solves (solves/s, honest KKT), then "pdip" at N=40, which must
-    warn and take kernel C;
+    10 chained solves (solves/s, honest KKT), then "pdip" at N=41, past
+    FUSED_N_MAX, which must warn and take kernel C;
 13. the backend crossover (``bench/crossover.py``) at B=16384, N = 10, 16,
     20, 30 (condensed and Riccati) and 80 (Riccati only), 2 chained solves
     per row;
@@ -89,7 +95,8 @@ from mpc_quad_ros_tpu_torch.bench.closed_loop import closed_loop  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.crossover import crossover_row  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.operating_point import N_BASIS, operating_point  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.regulation import regulation_chain, regulation_setup  # noqa: E402
-from mpc_quad_ros_tpu_torch.models import fold_drag, make_mpc_dynamics  # noqa: E402
+from mpc_quad_ros_tpu_torch.models import (fold_drag, hummingbird_params,  # noqa: E402
+                                           make_mpc_dynamics, rgp_init)
 from mpc_quad_ros_tpu_torch.ops import qp_kkt_residual, sqp  # noqa: E402
 from mpc_quad_ros_tpu_torch.ops.cuda import (_build, condense_kernel, lin_kernel,  # noqa: E402
                                              qp_kernel, riccati_kernel, sqp_fused_kernel)
@@ -157,6 +164,10 @@ FMA_RATE_CEILING = 1.05 * bounds.F32_FLOP_PER_S
 # roundings), 4 repetitions.
 PROBE_REL_TOL = 1e-6
 BENCH_B = 16384
+# Kernel B's resident warps per SM at N = 10: its block was cut to one
+# packed matrix so that at least this many reside (6 with three matrices
+# and J staged).
+RESIDENT_WARPS_MIN = 12
 T0 = time.perf_counter()
 
 
@@ -255,6 +266,34 @@ def phase_build() -> None:
             entry["registers"] = int(line.split("Used")[1].split("registers")[0])
     emit("build", seconds=time.perf_counter() - t0, registers=regs,
          library=str(lib.relative_to(_build.BUILD_ROOT.parents[1])))
+    return regs
+
+
+def phase_residency(regs: dict) -> None:
+    """Kernels B, E and F at N = 10 and 40: shared memory per block, the
+    registers and spills of the instantiation that runs there (R register
+    slots a lane, nz <= 32 R), resident one-warp blocks per SM."""
+    lib = _build.load_library()
+    rows = {}
+    for N in (10, N_LONG):
+        nz = 4 * N
+        slots = -(-nz // 32)
+        for name, key, smem, blocks in (
+                ("sqp_fused_kernel", f"sqp_fused<{slots}>", lib.mpcq_sqp_ws_bytes(N),
+                 lib.mpcq_sqp_occupancy(0, N)),
+                ("qp_kernel", f"box_qp<{slots}>", lib.mpcq_box_qp_ws_bytes(nz),
+                 lib.mpcq_box_qp_occupancy(nz)),
+                ("sqp_step_kernel", f"sqp_step<{slots}>", lib.mpcq_sqp_step_ws_bytes(N),
+                 lib.mpcq_sqp_occupancy(1, N))):
+            row = {"kernel": name, "instantiation": key, "N": N, "nz": nz, "smem_bytes": smem,
+                   **regs.get(key, {}), "resident_blocks_per_sm": blocks,
+                   "resident_warps_per_sm": blocks}
+            rows[(name, N)] = row
+            emit("residency", **row)
+            check(blocks > 0, f"residency: {name} at N={N} does not launch: {row}")
+    b10 = rows[("sqp_fused_kernel", 10)]["resident_warps_per_sm"]
+    check(b10 >= RESIDENT_WARPS_MIN,
+          f"residency: kernel B keeps {b10} warps per SM at N=10, fewer than {RESIDENT_WARPS_MIN}")
 
 
 def phase_kernel_a(device) -> dict:
@@ -589,6 +628,63 @@ def phase_kernel_b_warm(device) -> dict:
     return rows
 
 
+def hover_long_inputs(B: int, device, dtype=torch.float32):
+    """Kernel B's inputs at N=40 where the condensed f32 IPM keeps every
+    scenario: the benchmark's 1 s horizon at 25 ms nodes, hover at 3 m with
+    velocities U(-0.5, 0.5) m/s, y_ref = x0, RGP drag (posterior mean 0.3
+    N(0, 1)); the first step from the initial carry."""
+    gen = torch.Generator(device="cpu").manual_seed(40)
+    p = hummingbird_params(dtype=torch.float32).map(lambda a: a.to(device, dtype))
+    cfg = sqp.MPCConfig(n_nodes=N_LONG, t_horizon=1.0, u_ref=float(p.hover_input.float()))
+    solver = sqp.SQPSolver(cfg, make_mpc_dynamics(p))
+    x0 = torch.zeros((B, 13))
+    x0[:, 3] = 1.0
+    x0[:, 2] = 3.0
+    x0[:, 7:10] = 0.5 * (2.0 * torch.rand((B, 3), generator=gen) - 1.0)
+    rgp = rgp_init(torch.linspace(-10, 10, N_BASIS).expand(B, 3, N_BASIS), theta=(3.0, 0.1, 0.01))
+    rgp = rgp.replace(mu_g=0.3 * torch.randn((B, 3, N_BASIS), generator=gen))
+    x0, rgp = x0.to(device, dtype), rgp.map(lambda a: a.to(device, dtype))
+    y_ref = x0[:, None].repeat(1, N_LONG, 1)
+    carry = sqp.init_carry(cfg, x0)
+    aug = fold_drag(rgp).map(lambda a: a.contiguous())
+    return solver, carry, x0, y_ref, aug
+
+
+def phase_kernel_b_long(device) -> None:
+    """Kernel B at N=40 (five register slots a lane, 133 KB a block) against
+    its f32 and f64 plain versions, at the operating point of
+    ``hover_long_inputs``: the f32 plain version must keep every scenario,
+    the kernel is held to kernel B's rules against the f64 oracle."""
+    B = 512
+    solver, carry, x0, y_ref, aug = hover_long_inputs(B, device)
+    w = solver.cfg.weight_tuples()
+    iters = solver.cfg.qp_iters
+    args = step_args(solver, carry, x0, y_ref, aug)
+    z, dX, kkt, zl, zu = sqp_fused_kernel.fused_sqp_from_J(*args, *w, iters)
+    z_p, _, kkt_p, _, _ = sqp_fused_kernel.fused_sqp_from_J_plain(*args, *w, iters)
+    z_d, dX_d, kkt_d, _, _ = sqp_fused_kernel.fused_sqp_from_J_plain(
+        *[a.double() for a in args], *w, iters)
+    st = qp_stats(z, kkt, z_d, kkt_d)
+    st.update(plain_f32_nonfinite_share=(~torch.isfinite(z_p)).any(1).double().mean().item(),
+              z_plain_vs_f64=(z_p.double() - z_d).abs().max().item(),
+              dX_vs_f64=(dX.double() - dX_d).abs().max().item())
+    bad = 7
+    J_bad = args[0].clone()
+    J_bad[bad, N_LONG // 2, 5, 8] = float("nan")
+    nan_isolated = isolated(bad, (z, dX, kkt, zl, zu),
+                            sqp_fused_kernel.fused_sqp_from_J(J_bad, *args[1:], *w, iters))
+    emit("kernel_b_n40", B=B, N=N_LONG, t_horizon_s=1.0, **st, nan_isolated=nan_isolated,
+         smem_bytes=_build.load_library().mpcq_sqp_ws_bytes(N_LONG), tol_z=QP_Z_TOL,
+         tol_kkt=QP_KKT_TOL)
+    check(st["plain_f32_nonfinite_share"] == 0, f"kernel B N=40: the f32 plain version lost "
+          f"scenarios, the operating point does not hold the kernel to anything: {st}")
+    check(torch.isfinite(z).all() and torch.isfinite(dX).all(), "kernel B N=40: non-finite output")
+    check(torch.isfinite(zl).all() and bool((zl > 0).all()) and bool((zu > 0).all()),
+          "kernel B N=40: duals not finite and positive")
+    check_qp("kernel B N=40", st)
+    check(nan_isolated, "kernel B N=40: a NaN scenario changed another scenario's outputs")
+
+
 def time_chained(solver, carry0, x0, y_ref, rgp, iters: int, reps: int):
     """(solves/s over `reps` runs of `iters` chained solves after one, the
     last solution)."""
@@ -626,9 +722,12 @@ def phase_pipelines_agree(device) -> None:
     for pipe in ("split", "fused"):
         row[f"{pipe}_max_abs_dU_vs_hybrid"] = (sols[pipe].U - h.U).abs().max().item()
         row[f"{pipe}_max_abs_dX_vs_hybrid"] = (sols[pipe].X - h.X).abs().max().item()
+        row[f"{pipe}_U_bitwise_hybrid"] = torch.equal(sols[pipe].U, h.U)
         check_solution(f"{pipe} solve", sols[pipe], U_BOX_SLACK)
     emit("pipelines_vs_hybrid", B=SOLVE_B, **row, tol=QP_Z_TOL)
     check(all(v < QP_Z_TOL for k, v in row.items() if "dU" in k), f"pipelines disagree: {row}")
+    # the three pipelines run one IPM definition on the same QP
+    check(all(v for k, v in row.items() if "bitwise" in k), f"pipelines' U not bitwise equal: {row}")
 
 
 def phase_warm_chain(device) -> dict:
@@ -704,7 +803,7 @@ def phase_riccati_vs_cpu(device) -> None:
 
 def phase_riccati_slice(device) -> dict:
     """solve_batch(qp_method="auto") at N=40 takes kernels A and C; "pdip" at
-    N=40 warns and takes them too."""
+    N=41, past FUSED_N_MAX, warns and takes them too."""
     iters = 10
     solver, carry, x0, y_ref, rgp = operating_point(SOLVE_B, device, N=N_LONG, qp_method="auto")
     check(solver._resolve_qp_method() == "riccati", "riccati slice: auto did not pick riccati")
@@ -716,18 +815,19 @@ def phase_riccati_slice(device) -> dict:
 
     c_before = riccati_kernel.riccati_ipm_from_J.launches
     b_before = sqp_fused_kernel.fused_sqp_from_J.launches
-    sp, cp, xp0, yp, rp = operating_point(1024, device, N=N_LONG, qp_method="pdip")
+    n_past = sqp.FUSED_N_MAX + 1
+    sp, cp, xp0, yp, rp = operating_point(1024, device, N=n_past, qp_method="pdip")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         _, solp = sp.solve_batch(cp, xp0, yp, yp[:, -1], rp)
     torch.cuda.synchronize()
-    warned = any("shared-memory ceiling" in str(m.message) for m in caught)
+    warned = any("condensed kernels' ceiling" in str(m.message) for m in caught)
     pdip_took_c = (riccati_kernel.riccati_ipm_from_J.launches == c_before + 1
                    and sqp_fused_kernel.fused_sqp_from_J.launches == b_before)
     emit("riccati_slice", B=SOLVE_B, N=N_LONG, chained_solves=iters, solves_per_s=solves_per_s,
          kkt_max=kkt.max().item(), kkt_median=kkt.median().item(),
-         pdip_n40_warned=warned, pdip_n40_took_kernel_c=pdip_took_c)
-    check(warned and pdip_took_c, "riccati slice: pdip at N=40 did not fall back to kernel C")
+         pdip_past_n=n_past, pdip_past_warned=warned, pdip_past_took_kernel_c=pdip_took_c)
+    check(warned and pdip_took_c, f"riccati slice: pdip at N={n_past} did not fall back to kernel C")
     check(torch.isfinite(solp.U).all(), "riccati slice: pdip fallback gave non-finite controls")
     return {"solves_per_s": solves_per_s}
 
@@ -963,7 +1063,7 @@ def launched(counts: dict) -> set:
 def main() -> None:
     phase_environment()
     device = torch.device("cuda", 0)
-    phase_build()
+    phase_residency(phase_build())
     res = {"lin_kernel": phase_kernel_a(device), "sqp_fused_kernel": phase_kernel_b(device),
            "riccati_ipm": phase_kernel_c(device), "condense_kernel": phase_kernel_d(device),
            "qp_kernel": phase_kernel_e(device), "sqp_step_kernel": phase_kernel_f(device),
@@ -972,6 +1072,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_kernel_b_warm(device)
     phase_kernel_e(device, warm_start=True)
+    phase_kernel_b_long(device)
     torch.cuda.empty_cache()
     phase_slice_vs_cpu(device)
     phase_riccati_vs_cpu(device)

@@ -1,0 +1,143 @@
+"""Kernels B, E and F of this checkout against another checkout's, on one
+card, in one process, on the same inputs.
+
+    python -m mpc_quad_ros_tpu_torch.bench.compare_build --other PATH [--B 65536]
+
+PATH is another checkout of this repository (an earlier commit, unpacked).
+Its ``ops/cuda/_build.py`` builds its own ``csrc/`` into its own ``build/``,
+and its C entry points ``mpcq_sqp_fused``, ``mpcq_box_qp`` and
+``mpcq_sqp_step`` (the same C signatures) are called directly with this
+checkout's tensors: the solve cell's next Gauss-Newton step at B scenarios,
+N=10 (kernel B fed kernel A's J, kernel E on kernel D's QP, kernel F on the
+trajectory), cold and warm-started from the first solve's duals.  One JSON
+line per kernel and start: whether the two libraries' outputs are bitwise
+equal, their largest difference, and each library's CUDA-event time, taken
+in turns (other, this, this, other).  The launch counters of this
+checkout's wrappers are not touched: the calls go to the C entries.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import pathlib
+
+import torch
+
+from ..models import fold_drag
+from ..ops.cuda import _build, condense_kernel, lin_kernel
+from ..ops.cuda.lin_kernel import model_constants
+from .operating_point import operating_point
+from .phases import card, device_seconds
+
+
+def other_library(path: pathlib.Path):
+    """The CUDA library of the checkout at `path`, built by its own
+    ``_build.py``."""
+    src = pathlib.Path(path) / "mpc_quad_ros_tpu_torch" / "ops" / "cuda" / "_build.py"
+    spec = importlib.util.spec_from_file_location("other_build", src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load_library()
+
+
+def step_inputs(B: int, device) -> dict:
+    """The solve cell's step after one warm-up solve with warm duals on:
+    kernel B's, E's and F's arguments as the pipelines form them."""
+    solver, carry, x0, y_ref, rgp = operating_point(B, device, mu_scale=0.3,
+                                                    warm_start_duals=True)
+    carry, _ = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
+    cfg = solver.cfg
+    aug = fold_drag(rgp).map(lambda a: a.contiguous())
+    xp, J = lin_kernel.linearize(carry.X, carry.U, aug, solver.f, cfg.dt)
+    args = [J, *solver.qp_inputs(carry.X, carry.U, x0, y_ref, y_ref[:, -1], xp)]
+    q, p, rw = cfg.weight_tuples()
+    H, g, _, _ = condense_kernel.condense_cost_from_J(*args[:4], q, p, rw)
+    return {"args": args, "box": (H, (g + args[4]).contiguous(), args[5], args[6]),
+            "X": carry.X, "U": carry.U, "aug": aug, "duals": (carry.zl, carry.zu),
+            "weights": _build.host_floats(list(q) + list(p) + list(rw)),
+            "consts": _build.host_floats(model_constants(solver.f.params, cfg.dt)),
+            "iters": cfg.qp_iters, "N": cfg.n_nodes, "f": solver.f, "dt": cfg.dt}
+
+
+def _ptrs(tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def run_b(lib, inp, duals):
+    J = inp["args"][0]
+    B, N = J.shape[:2]
+    out = [torch.empty((B, 4 * N), device=J.device), torch.empty((B, N + 1, 13), device=J.device),
+           torch.empty((B,), device=J.device), torch.empty((B, 4 * N), device=J.device),
+           torch.empty((B, 4 * N), device=J.device)]
+    rc = lib.mpcq_sqp_fused(*_ptrs(inp["args"]), *_ptrs(duals), inp["weights"].data_ptr(),
+                            *_ptrs(out), B, N, inp["iters"], torch.cuda.current_stream().cuda_stream)
+    _build.check_status("compare_build kernel B", rc)
+    return out
+
+
+def run_e(lib, inp, duals):
+    H, g, lb, ub = inp["box"]
+    B, nz = g.shape
+    out = [torch.empty((B, nz), device=g.device) for _ in range(3)]
+    rc = lib.mpcq_box_qp(*_ptrs((H, g, lb, ub)), *_ptrs(duals), *_ptrs(out), B, nz, inp["iters"],
+                         torch.cuda.current_stream().cuda_stream)
+    _build.check_status("compare_build kernel E", rc)
+    return out
+
+
+def run_f(lib, inp, duals):
+    X, U, aug = inp["X"], inp["U"], inp["aug"]
+    B, N = U.shape[:2]
+    out = [torch.empty((B, 4 * N), device=X.device), torch.empty((B, N + 1, 13), device=X.device),
+           torch.empty((B,), device=X.device), torch.empty((B, 4 * N), device=X.device),
+           torch.empty((B, 4 * N), device=X.device)]
+    rc = lib.mpcq_sqp_step(X.data_ptr(), U.data_ptr(), *_ptrs((aug.X, aug.w, aug.L, aug.sigma_f)),
+                           aug.X.shape[-1], *_ptrs(inp["args"][2:]), *_ptrs(duals),
+                           inp["consts"].data_ptr(), inp["weights"].data_ptr(), *_ptrs(out), B, N,
+                           inp["iters"], torch.cuda.current_stream().cuda_stream)
+    _build.check_status("compare_build kernel F", rc)
+    return out
+
+
+KERNELS = {"B": run_b, "E": run_e, "F": run_f}
+
+
+def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
+    dev = torch.device("cuda", 0)
+    libs = {"other": other_library(other), "this": _build.load_library()}
+    inp = step_inputs(B, dev)
+    rows = []
+    for name, run in KERNELS.items():
+        for start, duals in (("cold", (None, None)), ("warm", inp["duals"])):
+            outs = {k: run(lib, inp, duals) for k, lib in libs.items()}
+            torch.cuda.synchronize()
+            row = {"kernel": name, "start": start, "B": B, "N": inp["N"],
+                   "bitwise": all(torch.equal(a, b) for a, b in zip(outs["this"], outs["other"])),
+                   "max_abs_diff": max((a - b).abs().max().item()
+                                       for a, b in zip(outs["this"], outs["other"])),
+                   "finite": all(bool(torch.isfinite(a).all()) for a in outs["this"])}
+            del outs
+            ms = {k: [] for k in libs}
+            for k in ("other", "this", "this", "other"):
+                ms[k].append(device_seconds(lambda: run(libs[k], inp, duals), reps, dev) * 1e3)
+            row.update({f"{k}_ms": v for k, v in ms.items()})
+            rows.append(row)
+    return rows
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=pathlib.Path, required=True)
+    ap.add_argument("--B", type=int, default=65536)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_build: needs a CUDA device")
+    print(card(), flush=True)
+    for row in compare(args.other, args.B):
+        print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

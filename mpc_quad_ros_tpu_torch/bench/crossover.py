@@ -43,7 +43,7 @@ def crossover_row(B: int, N: int, reps: int = 3, device="cuda") -> dict:
     for method, key in (("pdip", "condensed"), ("riccati", "riccati")):
         if method == "pdip" and N > FUSED_N_MAX:
             row[f"{key}_ms"] = row[f"{key}_solves_per_s"] = None
-            row[f"{key}_note"] = (f"shared-memory ceiling: N > FUSED_N_MAX = {FUSED_N_MAX}; "
+            row[f"{key}_note"] = (f"condensed kernels' ceiling: N > FUSED_N_MAX = {FUSED_N_MAX}; "
                                   "solve_batch falls back to the Riccati backend")
             continue
         ms, bad = time_backend(B, N, method, reps, device)

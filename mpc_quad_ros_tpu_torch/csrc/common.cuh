@@ -2,19 +2,31 @@
 //
 // Every kernel body is a template over the scalar type T and, for the
 // per-scenario kernels, over a "team": on the card the team is one warp
-// (32 lanes, __syncwarp, shuffle reductions); on the host it is one serial
-// lane (size 1, no-op sync, identity reductions).  nvcc builds the card
-// version; g++ builds the same source (with -x c++) into a host library whose
-// double instantiation the CPU tests hold against the plain PyTorch versions.
+// (32 lanes, __syncwarp, shuffle reductions and broadcasts, cp.async copies);
+// on the host it is one serial lane (size 1, no-op sync, identity
+// reductions) or 32 threads behind a barrier, which run the warp's lane split
+// and its syncs.  nvcc builds the card version; g++ builds the same source
+// (with -x c++) into a host library whose double instantiation the CPU tests
+// hold against the plain PyTorch versions.
 #pragma once
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #if defined(__CUDACC__)
 #define MPCQ_HD __host__ __device__ __forceinline__
 #else
 #define MPCQ_HD inline
+#endif
+
+// Loops over a lane's register slots are unrolled on the card, so that the
+// per-lane arrays stay in registers (an array indexed at run time would live
+// in local memory).
+#if defined(__CUDA_ARCH__)
+#define MPCQ_UNROLL _Pragma("unroll")
+#else
+#define MPCQ_UNROLL
 #endif
 
 namespace mpcq {
@@ -44,7 +56,22 @@ template <typename T> MPCQ_HD T step_ratio(T v, T dv) {
   return dv < T(0) ? -v / dv : T(INFINITY);
 }
 
+// Calls f(std::integral_constant<int, R>) with the least R in [R0, RMax] for
+// which a team of 32 lanes holds nz entries in R register slots a lane
+// (nz <= 32 R); returns -1 when nz needs more than RMax.  The launchers pick
+// their kernel's instantiation with it.
+template <int RMax, int R0 = 1, typename F> int with_slots(int nz, F&& f) {
+  if constexpr (R0 > RMax) {
+    return -1;
+  } else {
+    if (nz <= 32 * R0) return f(std::integral_constant<int, R0>{});
+    return with_slots<RMax, R0 + 1>(nz, f);
+  }
+}
+
 #if defined(__CUDACC__)
+#include <cuda_runtime.h>
+
 // One warp works on one scenario.
 struct WarpTeam {
   int lane;
@@ -62,10 +89,52 @@ struct WarpTeam {
     for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
   }
+  // lane src's v, on every lane
+  template <typename T> __device__ __forceinline__ T bcast(T v, int src) const {
+    return __shfl_sync(0xffffffffu, v, src);
+  }
+  // Starts copying n elements from device memory to shared memory
+  // (cp.async, 4 bytes a copy, lane-strided) as one commit group.
+  template <typename T>
+  __device__ __forceinline__ void copy_async(T* dst, const T* src, int n) const {
+    static_assert(sizeof(T) == 4, "cp.async copies 4-byte elements here");
+    for (int e = lane; e < n; e += size) {
+      const unsigned d = unsigned(__cvta_generic_to_shared(dst + e));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src + e)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  // Waits until at most `Pending` of this lane's latest commit groups are in
+  // flight, then syncs, so every lane's finished copies are visible.
+  template <int Pending> __device__ __forceinline__ void wait_async() const {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+    __syncwarp();
+  }
 };
+
+// Lets a kernel take `smem` bytes of dynamic shared memory, with the SM's
+// carve-out at its largest share for shared memory.
+template <typename K> cudaError_t allow_smem(K kernel, size_t smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              int(cudaSharedmemCarveoutMaxShared));
+}
+
+// Resident blocks of one warp per SM of a kernel at `smem`, from the
+// occupancy API, or -1.
+template <typename K> int resident_blocks(K kernel, size_t smem) {
+  int blocks = 0;
+  if (allow_smem(kernel, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32, smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
 #endif
 
-// The host build's team: one lane that runs every loop serially.
+// The host build's serial team: one lane that runs every loop serially.
 struct SerialTeam {
   int lane = 0;
   static constexpr int size = 1;
@@ -73,6 +142,101 @@ struct SerialTeam {
   template <typename T> MPCQ_HD T sum(T v) const { return v; }
   template <typename T> MPCQ_HD T min(T v) const { return v; }
   template <typename T> MPCQ_HD T max(T v) const { return v; }
+  template <typename T> MPCQ_HD T bcast(T v, int) const { return v; }
+  template <typename T> MPCQ_HD void copy_async(T* dst, const T* src, int n) const {
+    for (int e = 0; e < n; ++e) dst[e] = src[e];
+  }
+  template <int Pending> MPCQ_HD void wait_async() const {}
 };
 
+// Register slots of a lane in the host builds: nz <= 256 with either team.
+template <typename Team> constexpr int host_slots = 256 / Team::size;
+
 }  // namespace mpcq
+
+#if !defined(__CUDACC__)
+#include <barrier>
+#include <thread>
+#include <vector>
+
+namespace mpcq {
+
+// State the 32 threads of a ThreadTeam share: the barrier and two banks of
+// exchange slots.
+struct ThreadShared {
+  static constexpr int lanes = 32;
+  std::barrier<> bar{lanes};
+  double slots[2][lanes];
+};
+
+// The host build's warp: 32 threads, one a lane, each running the kernel
+// body with its own lane index and registers over one shared workspace.
+// sync() is the barrier; a reduction or broadcast writes the lane's value to
+// a slot bank, passes the barrier and reads the bank.  The banks alternate
+// from one exchange to the next, so a bank is written again only after every
+// lane has passed the barrier of the exchange in between, that is, after
+// every lane has read it.  Every lane reads the same slots in the same order,
+// so all lanes get the same bits.
+struct ThreadTeam {
+  int lane;
+  ThreadShared* sh;
+  mutable int bank = 0;
+  static constexpr int size = ThreadShared::lanes;
+  void sync() const { sh->bar.arrive_and_wait(); }
+  const double* exchange(double v) const {
+    double* s = sh->slots[bank];
+    bank ^= 1;
+    s[lane] = v;
+    sync();
+    return s;
+  }
+  template <typename T> T sum(T v) const {
+    const double* s = exchange(double(v));
+    T acc = T(s[0]);
+    for (int l = 1; l < size; ++l) acc = acc + T(s[l]);
+    return acc;
+  }
+  template <typename T> T min(T v) const {
+    const double* s = exchange(double(v));
+    T acc = T(s[0]);
+    for (int l = 1; l < size; ++l) acc = nan_min(acc, T(s[l]));
+    return acc;
+  }
+  template <typename T> T max(T v) const {
+    const double* s = exchange(double(v));
+    T acc = T(s[0]);
+    for (int l = 1; l < size; ++l) acc = nan_max(acc, T(s[l]));
+    return acc;
+  }
+  template <typename T> T bcast(T v, int src) const { return T(exchange(double(v))[src]); }
+  template <typename T> void copy_async(T* dst, const T* src, int n) const {
+    for (int e = lane; e < n; e += size) dst[e] = src[e];
+  }
+  template <int Pending> void wait_async() const { sync(); }
+};
+
+// Runs body(team, b) for b in [0, B) with one serial lane (lanes = 1) or a
+// ThreadTeam (lanes = 32), every lane over the same scenarios in order.
+template <typename Body> int run_host_team(int lanes, int64_t B, Body body) {
+  if (lanes == 1) {
+    SerialTeam tm;
+    for (int64_t b = 0; b < B; ++b) body(tm, b);
+    return 0;
+  }
+  if (lanes != ThreadShared::lanes) return -1;
+  ThreadShared sh;
+  std::vector<std::thread> threads;
+  for (int l = 0; l < ThreadShared::lanes; ++l)
+    threads.emplace_back([&, l] {
+      ThreadTeam tm{l, &sh};
+      for (int64_t b = 0; b < B; ++b) {
+        body(tm, b);
+        tm.sync();  // the workspace is reused by the next scenario
+      }
+    });
+  for (auto& t : threads) t.join();
+  return 0;
+}
+
+}  // namespace mpcq
+#endif

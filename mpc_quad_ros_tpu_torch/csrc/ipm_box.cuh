@@ -23,11 +23,39 @@
 // One definition serves kernels B, E and F, so the three pipelines solve the
 // same QP by the same code (as the Pallas consumers share ipm_box_solve).
 //
-// Matrices are row-major with leading dimension ld = nz + 1 (odd, so a
-// warp's lanes walking a column hit distinct shared-memory banks); only the
-// lower triangle of the factor is used.  Vectors are indexed by lane:
-// lane l owns entries l, l + size, ...  Every loop that reads what another
-// lane wrote is preceded by team.sync().
+// Where the data lives.  One nz x (nz + 1) matrix A per scenario (row-major,
+// ld = nz + 1, odd, so lanes walking a column or a row hit distinct banks):
+// H's strict upper triangle in place, its diagonal in the spare column nz,
+// and the factor in the lower triangle, diagonal included, rebuilt from H
+// every iteration.  The scaled matrix is never stored: H'(i, j) =
+// (H(i, j) s_i) s_j is formed where it is read.  s and z lie in shared
+// memory (every lane reads all of them in H z), beside a table of the
+// (row, column) pairs of the flattened strict lower triangle, 16 bits each,
+// built once a solve; every other vector lies in registers, lane l holding
+// entries l, l + size, ... in its R slots (nz <= R size), and y_j, dz_j
+// travel from their owner by team.bcast.
+//
+// What bounds it on the H100, and what the design does about it.  A
+// scenario is a chain of nz dependent Cholesky columns and 2 nz dependent
+// substitution steps per iteration, latency-bound on one warp; the batch
+// hides that latency only with many resident warps, which shared memory
+// caps.  So: one matrix, two vectors and the triangle table in shared
+// memory (8.4 KB at nz = 40); the trailing
+// update of column j split evenly over the lanes as a flattened triangle
+// (every lane 0-1 elements apart, where whole rows gave lanes 0-7 twice the
+// work at nz = 40), each element's coordinates one table read (a trailing
+// triangle is a prefix of the whole one, so one table serves every column),
+// four elements' loads made before their stores, the column's scaling
+// folded into the update so a column costs one sync; the
+// substitutions' right-hand sides in registers, each step one shuffle
+// instead of a shared-memory round trip through lane 0.
+//
+// The arithmetic of every element is the previous design's: each multiply
+// is written as the fused multiply-add (fmadd) or the rounded product
+// (mul_rn) that design compiled to, so no compiler choice of what to fuse is
+// left (with the vectors in registers it would otherwise fuse or share
+// products differently in kernels B, E and F); the update of L(i, k) runs
+// over the columns in order and H z over j in order, whatever lane does it.
 #pragma once
 
 #include "common.cuh"
@@ -38,160 +66,286 @@ namespace mpcq {
 // dual floor (in the scaled system): WS_GAMMA and WS_FLOOR of the JAX kernel.
 constexpr double WS_GAMMA = 0.01, WS_FLOOR = 1e-3;
 
-template <typename T> struct IpmWork {
-  T *Hs, *Lm;                                 // nz x ld each
-  T *s, *g, *lb, *ub, *z, *sl, *su, *zl, *zu;  // nz each
-  T *res, *y, *sli, *sui, *dinv, *dz, *dzl, *dzu;
-  static constexpr int n_vectors = 17;
+// a b + c with one rounding (fmadd) and a b rounded on its own (mul_rn):
+// on the card one instruction each that the compiler may neither fuse nor
+// split; on the host, which contracts nothing, the plain operators.
+#if defined(__CUDA_ARCH__)
+MPCQ_HD float fmadd(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+MPCQ_HD double fmadd(double a, double b, double c) { return __fma_rn(a, b, c); }
+MPCQ_HD float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+MPCQ_HD double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+#else
+template <typename T> MPCQ_HD T fmadd(T a, T b, T c) { return a * b + c; }
+template <typename T> MPCQ_HD T mul_rn(T a, T b) { return a * b; }
+#endif
+
+// Elements of the packed matrix A (nz x (nz + 1)).
+MPCQ_HD int64_t packed_size(int nz) { return int64_t(nz) * (nz + 1); }
+
+// Elements of T (4 bytes or more) the triangle table takes: one 16-bit
+// (row, column) pair per element of the strict lower triangle.
+MPCQ_HD int64_t tri_table_size(int nz) { return (int64_t(nz) * (nz - 1) / 2 + 1) / 2; }
+
+// Elements of T of the IPM's vectors in shared memory: s, z, the table.
+MPCQ_HD int64_t ipm_vec_size(int nz) { return 2 * int64_t(nz) + tri_table_size(nz); }
+
+// Elements of T the IPM takes in shared memory: A, then its vectors.
+MPCQ_HD int64_t ipm_ws_size(int nz) { return packed_size(nz) + ipm_vec_size(nz); }
+
+// H(i, j) of the packed matrix (ld = nz + 1): the upper triangle in place,
+// the lower by symmetry, the diagonal in the spare column; one address,
+// no branch.
+template <typename T> MPCQ_HD T h_sym(const T* A, int ld, int i, int j) {
+  const int lo = i < j ? i : j, hi = i < j ? j : i;
+  return A[lo * ld + (i == j ? ld - 1 : hi)];
+}
+
+// Walks the row-major lower triangle {(a, c): 0 <= c <= a} by flat index
+// e = a (a + 1) / 2 + c, from a lane's first element in steps of the team
+// (once a solve, to fill the table).
+struct TriWalk {
+  int a = 0, c;
+  MPCQ_HD explicit TriWalk(int e) : c(e) { settle(); }
+  MPCQ_HD void settle() {
+    while (c > a) {
+      c -= a + 1;
+      ++a;
+    }
+  }
+  MPCQ_HD void advance(int step) {
+    c += step;
+    settle();
+  }
 };
 
-// Elements of T the IPM's workspace takes: two nz x ld matrices, 17 vectors.
-MPCQ_HD int64_t ipm_ws_size(int nz) {
-  return 2 * int64_t(nz) * (nz + 1) + IpmWork<float>::n_vectors * int64_t(nz);
-}
+// Elements of one column's trailing update a lane loads before it stores.
+constexpr int CHOL_BATCH = 4;
 
-// Lays the IPM's workspace out from p (ld = nz + 1).
-template <typename T> MPCQ_HD IpmWork<T> ipm_work_at(T* p, int nz) {
-  const int ld = nz + 1;
-  IpmWork<T> w;
-  w.Hs = p; p += nz * ld;
-  w.Lm = p; p += nz * ld;
-  T** vecs[IpmWork<T>::n_vectors] = {&w.s, &w.g, &w.lb, &w.ub, &w.z, &w.sl, &w.su, &w.zl,
-                                     &w.zu, &w.res, &w.y, &w.sli, &w.sui, &w.dinv, &w.dz,
-                                     &w.dzl, &w.dzu};
-  for (int v = 0; v < IpmWork<T>::n_vectors; ++v) { *vecs[v] = p; p += nz; }
-  return w;
-}
-
-// H (nz x ld, full symmetric), g, lb, ub: the unscaled QP.  zl0, zu0: the
-// previous duals (unscaled), or null for the cold start.  Writes the solution
-// to z_out and the duals to zl_out, zu_out (nz each).
-template <typename T, typename Team>
-MPCQ_HD void ipm_box_solve(const Team& tm, int nz, int ld, int iters, const T* H,
-                           const T* g0, const T* lb0, const T* ub0, const T* zl0,
-                           const T* zu0, const IpmWork<T>& w, T* z_out, T* zl_out,
-                           T* zu_out) {
-  const int ln = tm.lane, NL = Team::size;
+// A (nz x (nz + 1)): H packed as above; its upper triangle and spare column
+// are left as they came, its lower triangle holds the last factor.  vec:
+// ipm_vec_size(nz) elements of shared memory (s, z, the table).  g0, lb0,
+// ub0: the unscaled QP (shared or device memory).  zl0, zu0: the previous
+// duals (unscaled), or null for the cold start.  Writes the solution to
+// z_out and the duals to zl_out, zu_out (nz each), then syncs.  Needs
+// nz <= R Team::size and nz <= 256.
+template <int R, typename T, typename Team>
+MPCQ_HD void ipm_box_solve(const Team& tm, int nz, int iters, T* A, T* vec, const T* g0,
+                           const T* lb0, const T* ub0, const T* zl0, const T* zu0, T* z_out,
+                           T* zl_out, T* zu_out) {
+  const int ln = tm.lane, NL = Team::size, ld = nz + 1;
   const bool warm = zl0 != nullptr;
+  T* s_sh = vec;
+  T* z_sh = vec + nz;
+  // (row, column) of flat element e of the strict lower triangle of an
+  // m x m trailing block, as row << 8 | column; the block of any column is a
+  // prefix of column 0's
+  uint16_t* tri = reinterpret_cast<uint16_t*>(vec + 2 * nz);
+  {
+    const int m = nz - 1, total = m * (m + 1) / 2;
+    TriWalk w(ln);
+    for (int e = ln; e < total; e += NL, w.advance(NL)) tri[e] = uint16_t(w.a << 8 | w.c);
+  }
+  // lane-owned entries i = ln + NL r; v is the Newton right-hand side, then
+  // y, then dz
+  T s[R], g[R], lb[R], ub[R], z[R], sl[R], su[R], zl[R], zu[R], sli[R], sui[R], dinv[R],
+      v[R], hz[R];
+  auto own = [&](int r) { return ln + NL * r; };
 
   // ---- Jacobi scaling and the cold or warm start ----
-  for (int i = ln; i < nz; i += NL) w.s[i] = m_rsqrt(floor_at(H[i * ld + i], T(1e-12)));
-  tm.sync();
-  for (int e = ln; e < nz * nz; e += NL) {
-    int i = e / nz, j = e % nz;
-    w.Hs[i * ld + j] = H[i * ld + j] * w.s[i] * w.s[j];
-  }
-  for (int i = ln; i < nz; i += NL) {
-    T s = w.s[i];
-    T lb = lb0[i] / s, ub = ub0[i] / s;
-    T z, zl, zu;
+  MPCQ_UNROLL
+  for (int r = 0; r < R; ++r) {
+    s[r] = g[r] = lb[r] = ub[r] = z[r] = sl[r] = su[r] = zl[r] = zu[r] = T(0);
+    sli[r] = sui[r] = dinv[r] = v[r] = hz[r] = T(0);
+    const int i = own(r);
+    if (i >= nz) continue;
+    const T si = m_rsqrt(floor_at(A[i * ld + nz], T(1e-12)));
+    const T l = lb0[i] / si, u = ub0[i] / si;
+    T zi;
     if (warm) {
-      T width = ub - lb;
-      z = clip(T(0), lb + T(WS_GAMMA) * width, ub - T(WS_GAMMA) * width);
-      zl = floor_at(zl0[i] * s, T(WS_FLOOR));
-      zu = floor_at(zu0[i] * s, T(WS_FLOOR));
+      const T margin = mul_rn(T(WS_GAMMA), u - l);
+      zi = clip(T(0), l + margin, u - margin);
+      zl[r] = floor_at(mul_rn(zl0[i], si), T(WS_FLOOR));
+      zu[r] = floor_at(mul_rn(zu0[i], si), T(WS_FLOOR));
     } else {
-      z = T(0.5) * (lb + ub);
-      zl = T(1);
-      zu = T(1);
+      zi = mul_rn(T(0.5), l + u);
+      zl[r] = T(1);
+      zu[r] = T(1);
     }
-    w.g[i] = g0[i] * s;
-    w.lb[i] = lb;
-    w.ub[i] = ub;
-    w.z[i] = z;
-    w.zl[i] = zl;
-    w.zu[i] = zu;
-    w.sl[i] = z - lb;
-    w.su[i] = ub - z;
+    s[r] = si;
+    g[r] = mul_rn(g0[i], si);
+    lb[r] = l;
+    ub[r] = u;
+    z[r] = zi;
+    sl[r] = zi - l;
+    su[r] = u - zi;
+    s_sh[i] = si;
+    z_sh[i] = zi;
   }
   tm.sync();
 
   for (int it = 0; it < iters; ++it) {
     // ---- barrier target ----
     T pl = T(0), pu = T(0);
-    for (int i = ln; i < nz; i += NL) {
-      pl = pl + w.sl[i] * w.zl[i];
-      pu = pu + w.su[i] * w.zu[i];
+    MPCQ_UNROLL
+    for (int r = 0; r < R; ++r) {
+      if (own(r) >= nz) continue;
+      pl = fmadd(sl[r], zl[r], pl);
+      pu = fmadd(su[r], zu[r], pu);
     }
-    T mu = T(0.1) * ((tm.sum(pl) + tm.sum(pu)) / T(2 * nz));
+    T mu = mul_rn(T(0.1), (tm.sum(pl) + tm.sum(pu)) / T(2 * nz));
 
-    // ---- residual, barrier diagonal, Newton right-hand side and matrix ----
-    for (int i = ln; i < nz; i += NL) {
-      const T* Hi = w.Hs + i * ld;
-      T Hz = Hi[0] * w.z[0];
-      for (int j = 1; j < nz; ++j) Hz = Hz + Hi[j] * w.z[j];
-      T sl = w.sl[i], su = w.su[i], zl = w.zl[i], zu = w.zu[i];
-      T r = Hz + w.g[i] - zl + zu;
-      T sli = T(1) / sl, sui = T(1) / su;
-      w.sli[i] = sli;
-      w.sui[i] = sui;
-      w.res[i] = -r + (mu - sl * zl) * sli - (mu - su * zu) * sui;
-      T* Li = w.Lm + i * ld;
-      for (int j = 0; j < i; ++j) Li[j] = Hi[j];
-      Li[i] = Hi[i] + (zl * sli + zu * sui);
+    // ---- H'z, row i summed over j in order ----
+    {
+      const T s0 = s_sh[0], z0 = z_sh[0];
+      MPCQ_UNROLL
+      for (int r = 0; r < R; ++r)
+        if (own(r) < nz) hz[r] = mul_rn(mul_rn(mul_rn(h_sym(A, ld, own(r), 0), s[r]), s0), z0);
+    }
+    for (int j = 1; j < nz; ++j) {
+      const T sj = s_sh[j], zj = z_sh[j];
+      MPCQ_UNROLL
+      for (int r = 0; r < R; ++r)
+        if (own(r) < nz) hz[r] = fmadd(mul_rn(mul_rn(h_sym(A, ld, own(r), j), s[r]), sj), zj, hz[r]);
+    }
+
+    // ---- residual, barrier diagonal, Newton right-hand side; the
+    // factor's diagonal ----
+    MPCQ_UNROLL
+    for (int r = 0; r < R; ++r) {
+      const int i = own(r);
+      if (i >= nz) continue;
+      T res = hz[r] + g[r] - zl[r] + zu[r];
+      T a = T(1) / sl[r], b = T(1) / su[r];
+      sli[r] = a;
+      sui[r] = b;
+      v[r] = fmadd(-fmadd(-su[r], zu[r], mu), b, fmadd(fmadd(-sl[r], zl[r], mu), a, -res));
+      A[i * ld + i] = mul_rn(mul_rn(A[i * ld + nz], s[r]), s[r]) + fmadd(zl[r], a, mul_rn(zu[r], b));
+    }
+    // ---- the factor's strict lower triangle: H' from the upper, spread
+    // evenly over the lanes ----
+    {
+      const int m = nz - 1, total = m * (m + 1) / 2;
+      for (int e = ln; e < total; e += NL) {
+        const int code = tri[e], i = (code >> 8) + 1, j = code & 255;
+        A[i * ld + j] = mul_rn(mul_rn(A[j * ld + i], s_sh[i]), s_sh[j]);
+      }
     }
     tm.sync();
 
-    // ---- right-looking Cholesky, lower triangle; the diagonal of the
-    // factor is kept only as its reciprocal dinv ----
+    // ---- right-looking Cholesky, lower triangle.  Column j's trailing
+    // update L(i, k) -= (L(i, j) d_j)(L(k, j) d_j), j < k <= i, runs over the
+    // flattened triangle; column j itself is scaled by d_j during column
+    // j + 1's update, which does not read it.  The factor's diagonal is
+    // kept only as its reciprocal d (dinv) ----
+    T dprev = T(0);
     for (int j = 0; j < nz; ++j) {
-      T dj = m_rsqrt(floor_at(w.Lm[j * ld + j], T(1e-12)));
-      for (int i = j + 1 + ln; i < nz; i += NL) w.Lm[i * ld + j] = w.Lm[i * ld + j] * dj;
-      if (ln == 0) w.dinv[j] = dj;
-      tm.sync();
-      for (int i = j + 1 + ln; i < nz; i += NL) {
-        T* Li = w.Lm + i * ld;
-        T lij = Li[j];
-        for (int k = j + 1; k <= i; ++k) Li[k] = Li[k] - lij * w.Lm[k * ld + j];
+      const T dj = m_rsqrt(floor_at(A[j * ld + j], T(1e-12)));
+      MPCQ_UNROLL
+      for (int r = 0; r < R; ++r)
+        if (own(r) == j) dinv[r] = dj;
+      if (j > 0)
+        for (int i = j + ln; i < nz; i += NL) A[i * ld + j - 1] = mul_rn(A[i * ld + j - 1], dprev);
+      // A index of (j + 1, j + 1): element (a, c) of the trailing block is
+      // (j + 1 + a, j + 1 + c)
+      const int m = nz - 1 - j, total = m * (m + 1) / 2, base = (j + 1) * (ld + 1);
+      for (int e0 = ln; e0 < total; e0 += CHOL_BATCH * NL) {
+        int at[CHOL_BATCH], ai[CHOL_BATCH], ak[CHOL_BATCH];
+        T lik[CHOL_BATCH], lij[CHOL_BATCH], lkj[CHOL_BATCH];
+        MPCQ_UNROLL
+        for (int u = 0; u < CHOL_BATCH; ++u) {
+          at[u] = -1;
+          if (e0 + u * NL < total) {
+            const int code = tri[e0 + u * NL], a = code >> 8, c = code & 255;
+            at[u] = base + a * ld + c;
+            ai[u] = base - 1 + a * ld;
+            ak[u] = base - 1 + c * ld;
+          }
+        }
+        MPCQ_UNROLL
+        for (int u = 0; u < CHOL_BATCH; ++u)
+          if (at[u] >= 0) {
+            lik[u] = A[at[u]];
+            lij[u] = A[ai[u]];
+            lkj[u] = A[ak[u]];
+          }
+        MPCQ_UNROLL
+        for (int u = 0; u < CHOL_BATCH; ++u)
+          if (at[u] >= 0) A[at[u]] = fmadd(-mul_rn(lij[u], dj), mul_rn(lkj[u], dj), lik[u]);
       }
+      dprev = dj;
       tm.sync();
     }
 
-    // ---- forward substitution L y = res (column-oriented) ----
-    for (int j = 0; j < nz; ++j) {
-      T yj = w.res[j] * w.dinv[j];
-      for (int i = j + 1 + ln; i < nz; i += NL) w.res[i] = w.res[i] - w.Lm[i * ld + j] * yj;
-      if (ln == 0) w.y[j] = yj;
-      tm.sync();
+    // ---- forward substitution L y = v (column-oriented): y_j from its
+    // owner, lane jl of slot jb ----
+    MPCQ_UNROLL
+    for (int jb = 0; jb < R; ++jb) {
+      for (int jl = 0; jl < NL; ++jl) {
+        const int j = jb * NL + jl;
+        if (j >= nz) break;
+        const T yj = tm.bcast(mul_rn(v[jb], dinv[jb]), jl);
+        MPCQ_UNROLL
+        for (int r = jb; r < R; ++r) {
+          const int i = own(r);
+          if (i > j && i < nz) v[r] = fmadd(-A[i * ld + j], yj, v[r]);
+        }
+        if (ln == jl) v[jb] = yj;
+      }
     }
-    // ---- back substitution L^T dz = y (column-oriented, y overwritten) ----
-    for (int j = nz - 1; j >= 0; --j) {
-      T dzj = w.y[j] * w.dinv[j];
-      for (int i = ln; i < j; i += NL) w.y[i] = w.y[i] - w.Lm[j * ld + i] * dzj;
-      if (ln == 0) w.dz[j] = dzj;
-      tm.sync();
+    // ---- back substitution L^T dz = y (column-oriented) ----
+    MPCQ_UNROLL
+    for (int jb = R - 1; jb >= 0; --jb) {
+      for (int jl = NL - 1; jl >= 0; --jl) {
+        const int j = jb * NL + jl;
+        if (j >= nz) continue;
+        const T dzj = tm.bcast(mul_rn(v[jb], dinv[jb]), jl);
+        MPCQ_UNROLL
+        for (int r = 0; r <= jb; ++r) {
+          const int i = own(r);
+          if (i < j) v[r] = fmadd(-A[j * ld + i], dzj, v[r]);
+        }
+        if (ln == jl) v[jb] = dzj;
+      }
     }
 
     // ---- dual steps and fraction-to-the-boundary ----
     T pmin = T(INFINITY);
-    for (int i = ln; i < nz; i += NL) {
-      T sl = w.sl[i], su = w.su[i], zl = w.zl[i], zu = w.zu[i], dz = w.dz[i];
-      T dzl = (mu - sl * zl - zl * dz) * w.sli[i];
-      T dzu = (mu - su * zu + zu * dz) * w.sui[i];
-      w.dzl[i] = dzl;
-      w.dzu[i] = dzu;
-      pmin = nan_min(pmin, nan_min(nan_min(step_ratio(sl, dz), step_ratio(su, -dz)),
-                                   nan_min(step_ratio(zl, dzl), step_ratio(zu, dzu))));
+    T dzl[R], dzu[R];
+    MPCQ_UNROLL
+    for (int r = 0; r < R; ++r) {
+      dzl[r] = dzu[r] = T(0);
+      if (own(r) >= nz) continue;
+      const T dz = v[r];
+      dzl[r] = mul_rn(fmadd(-zl[r], dz, fmadd(-sl[r], zl[r], mu)), sli[r]);
+      dzu[r] = mul_rn(fmadd(zu[r], dz, fmadd(-su[r], zu[r], mu)), sui[r]);
+      pmin = nan_min(pmin, nan_min(nan_min(step_ratio(sl[r], dz), step_ratio(su[r], -dz)),
+                                   nan_min(step_ratio(zl[r], dzl[r]), step_ratio(zu[r], dzu[r]))));
     }
-    T alpha = nan_min(T(1), T(0.995) * tm.min(pmin));
+    T alpha = nan_min(T(1), mul_rn(T(0.995), tm.min(pmin)));
 
-    for (int i = ln; i < nz; i += NL) {
-      T lb = w.lb[i], ub = w.ub[i];
-      T z = w.z[i] + alpha * w.dz[i];
-      T eps = T(1e-10) * floor_at(ub - lb, T(1));
-      w.z[i] = z;
-      w.sl[i] = floor_at(z - lb, eps);
-      w.su[i] = floor_at(ub - z, eps);
-      w.zl[i] = floor_at(w.zl[i] + alpha * w.dzl[i], T(1e-12));
-      w.zu[i] = floor_at(w.zu[i] + alpha * w.dzu[i], T(1e-12));
+    MPCQ_UNROLL
+    for (int r = 0; r < R; ++r) {
+      const int i = own(r);
+      if (i >= nz) continue;
+      T zi = fmadd(alpha, v[r], z[r]);
+      T eps = mul_rn(T(1e-10), floor_at(ub[r] - lb[r], T(1)));
+      z[r] = zi;
+      z_sh[i] = zi;
+      sl[r] = floor_at(zi - lb[r], eps);
+      su[r] = floor_at(ub[r] - zi, eps);
+      zl[r] = floor_at(fmadd(alpha, dzl[r], zl[r]), T(1e-12));
+      zu[r] = floor_at(fmadd(alpha, dzu[r], zu[r]), T(1e-12));
     }
     tm.sync();
   }
 
-  for (int i = ln; i < nz; i += NL) {
-    z_out[i] = clip(w.z[i], w.lb[i], w.ub[i]) * w.s[i];
-    zl_out[i] = w.zl[i] / w.s[i];
-    zu_out[i] = w.zu[i] / w.s[i];
+  MPCQ_UNROLL
+  for (int r = 0; r < R; ++r) {
+    const int i = own(r);
+    if (i >= nz) continue;
+    z_out[i] = mul_rn(clip(z[r], lb[r], ub[r]), s[r]);
+    zl_out[i] = zl[r] / s[r];
+    zu_out[i] = zu[r] / s[r];
   }
   tm.sync();
 }

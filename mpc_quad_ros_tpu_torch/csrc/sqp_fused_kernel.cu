@@ -9,13 +9,14 @@
 // linearisation J (N, 17, 13) (row j of stage k = column j of [A_k | B_k])
 // and the defects r (N, 13):
 //
-// - the condensing of condense.cuh (H lower triangle, mirrored; + rw
-//   diagonal), then g += gu;
+// - the condensing of condense.cuh into the packed layout (H's upper
+//   triangle and a diagonal column, + rw diagonal), then g += gu;
 // - the IPM of ipm_box.cuh, `iters` iterations, cold-started or warm-started
 //   from the previous duals zl0, zu0 (null for the cold start); it writes the
 //   new duals zl, zu (unscaled) on both starts;
 // - the projected-gradient KKT residual max |clip(z - (H z + g), lb, ub) - z|
-//   against the unscaled H and g;
+//   against the unscaled H (the packed upper triangle, which the IPM leaves
+//   as it was) and g;
 // - dX_0 = dx0, dX_{k+1} = r_k + A_k dX_k + B_k z_k.
 //
 // Kernel B's inputs (contiguous f32): J (B, N, 17, 13), r (B, N, 13),
@@ -23,29 +24,34 @@
 // optional zl0, zu0 (B, nz).  Kernel F takes X (B, N+1, 13), U (B, N, 4) and
 // the folded drag Xb, wb (B, 3, nb), L, sigma_f (B, 3) in place of J and r:
 // its 32 lanes first walk the scenario's N x 17 (stage, tangent) items of
-// model.cuh (6 rounds at N = 10), writing J into the shared memory that
-// kernel B stages J into and x+ - X_{k+1} into a shared r.  Outputs of both:
-// z (B, nz), dX (B, N+1, 13), kkt (B), zl, zu (B, nz).  nz = 4 N.
+// model.cuh (6 rounds at N = 10), writing J and x+ - X_{k+1} into shared
+// memory.  Outputs of both: z (B, nz), dX (B, N+1, 13), kkt (B), zl, zu
+// (B, nz).  nz = 4 N.
 //
-// Design: one block of one warp per scenario; J, the condensing map M, H
-// (unscaled, scaled, factor) and the IPM vectors live in shared memory
-// (about 36 KB at N = 10; kernel F adds r, 52 N bytes).  The duals are read
-// and written in device memory once each, so the warm path adds no nz x ld
-// matrix.  Nothing is reduced across blocks, so a NaN in one scenario leaves
-// every other scenario bitwise unchanged.  The three nz x ld matrices grow as
-// 48 N^2 bytes: kernel B's workspace (mpcq_sqp_ws_bytes) passes the H100's
-// 232,448-byte ceiling at N = 31 and kernel F's (mpcq_sqp_step_ws_bytes) at
-// N = 31 too (224,984 B at N = 30), so the wrappers refuse N > 30 and the
-// solver takes the Riccati kernel there (ops/sqp.py FUSED_N_MAX).
-//
-// What bounds them on the H100: the serial latency of the per-scenario
-// Cholesky (nz dependent column steps, each a warp sync, times `iters`);
-// kernel B reads J from device memory once, kernel F never.  The simple
-// design runs one warp per scenario and relies on many resident blocks (6 per
-// SM by shared memory at N = 10) to hide that latency; splitting a scenario
-// over more warps, or packing several scenarios per warp, is later work.
-// Kernel F's linearisation runs on a quarter of the lanes kernel A would give
-// it per SM (one warp per scenario instead of 17 threads per stage).
+// What bounds them on the H100: the IPM's per-scenario latency (nz dependent
+// Cholesky columns and 2 nz dependent substitution steps, times `iters`, on
+// one warp), which only many resident warps hide; shared memory per block
+// sets how many reside.  The design keeps one scenario a warp and cuts the
+// block to what is live.  Kernel B's shared memory holds one packed nz x
+// (nz + 1) matrix (H, then H and the factor), g, the two 13 x nz condensing
+// maps M (dead once the IPM starts: the IPM's s and z and the solution lie
+// over them), two d vectors and a two-stage buffer of J: J stays in device
+// memory and is streamed one stage at a time by cp.async, the next stage in
+// flight while this one computes, once for the condensing and once for the
+// dX recurrence (kernel C's precedent: reading J from L2 beat staging it).
+// 12,752 B at N = 10, 132,912 B at N = 40.  Kernel F
+// keeps J staged (it has no copy in device memory) and its defects: 20,344 B
+// at N = 10, 168,584 B at N = 40.  Both are built for
+// nz <= 160 (N <= 40, ops/sqp.py FUSED_N_MAX, the JAX package's ceiling):
+// one instantiation per R = ceil(nz / 32) register slots a lane.  Up to
+// R = 2 (N <= 16) kernel B is held to 128 registers, so that 16 warps can
+// reside per SM, as many as the shared memory allows at N = 10; kernel F,
+// held by its shared memory to 10 warps there, keeps the registers of its
+// linearisation.  Nothing is
+// reduced across blocks, so a NaN in one scenario leaves every other
+// scenario bitwise unchanged.  Kernel F's linearisation runs on a quarter of
+// the lanes kernel A would give it per SM (one warp per scenario instead of
+// 17 threads per stage).
 
 #include "condense.cuh"
 #include "ipm_box.cuh"
@@ -53,56 +59,77 @@
 
 namespace mpcq {
 
-// Workspace of one scenario of kernel B, in elements of T: the condensing's,
-// then lb, ub, z and the IPM's.
-MPCQ_HD int64_t sqp_ws_size(int N) {
-  int nz = N * SU;
-  return condense_ws_size(N) + 3 * nz + ipm_ws_size(nz);
+// Register slots a lane of kernels B and F holds: nz <= 32 FUSED_SLOTS.
+constexpr int FUSED_SLOTS = 5;
+
+// Elements of the region that holds the condensing maps M (2 x 13 x nz),
+// then the IPM's vectors and the solution zf (nz): the larger of the two
+// (the maps up to nz = 93).
+MPCQ_HD int64_t sqp_maps_size(int nz) {
+  const int64_t maps = 2 * SX * int64_t(nz), ipm = ipm_vec_size(nz) + nz;
+  return maps > ipm ? maps : ipm;
 }
 
-// Kernel F's: kernel B's and the defects r (N x 13).
-MPCQ_HD int64_t sqp_step_ws_size(int N) { return sqp_ws_size(N) + int64_t(N) * SX; }
-
-// Kernel B's body with J already in the workspace's J slot (ws[0, N*17*13)).
-template <typename T, typename Team>
-MPCQ_HD void sqp_from_staged_J(const Team& tm, int N, int iters, const Weights<T>& wt,
-                               const T* rg, const T* dx0, const T* ex0, const T* gu,
-                               const T* lbg, const T* ubg, const T* zl0, const T* zu0,
-                               T* ws, T* z_out, T* dX_out, T* kkt_out, T* zl_out,
-                               T* zu_out) {
-  const int nz = N * SU, ld = nz + 1, ln = tm.lane, NL = Team::size;
-  CondenseWork<T> cw(ws, N);
-  T* lb = ws + condense_ws_size(N);
-  T* ub = lb + nz;
-  T* zf = ub + nz;
-  IpmWork<T> w = ipm_work_at(zf + nz, nz);
-  T *Js = cw.Js, *db = cw.db, *H = cw.H, *g = cw.g;
-
-  condense_from_J(tm, N, wt, cw, rg, dx0, ex0, (T*)nullptr, (T*)nullptr);
-  for (int i = ln; i < nz; i += NL) {
-    g[i] = g[i] + gu[i];
-    lb[i] = lbg[i];
-    ub[i] = ubg[i];
+// Kernel B's and F's shared workspace of one scenario (elements of T): the
+// packed matrix A (nz x ld), g (nz), the maps region Mb, db (2 x 13), then
+// J: kernel B's two-stage stream buffer, or kernel F's staged J
+// (N x 17 x 13) and defects r (N x 13).
+template <typename T> struct SqpWork {
+  T *A, *g, *Mb, *db, *J;
+  MPCQ_HD SqpWork(T* ws, int N) {
+    const int nz = N * SU;
+    A = ws;
+    g = A + packed_size(nz);
+    Mb = g + nz;
+    db = Mb + sqp_maps_size(nz);
+    J = db + 2 * SX;
   }
+};
+
+MPCQ_HD int64_t sqp_common_size(int N) {
+  const int nz = N * SU;
+  return packed_size(nz) + nz + sqp_maps_size(nz) + 2 * SX;
+}
+// Kernel B's workspace: the common part and the stream buffer.
+MPCQ_HD int64_t sqp_ws_size(int N) { return sqp_common_size(N) + 2 * J_STAGE; }
+// Kernel F's: the common part, J staged and the defects.
+MPCQ_HD int64_t sqp_step_ws_size(int N) {
+  return sqp_common_size(N) + int64_t(N) * (J_STAGE + SX);
+}
+
+// The step after J: condense, IPM, KKT, dX.  js is J's source, rg the
+// defects (device or shared memory).
+template <int R, typename T, typename Team, typename JSrc>
+MPCQ_HD void sqp_body(const Team& tm, int N, int iters, const Weights<T>& wt, const JSrc& js,
+                      const SqpWork<T>& w, const T* rg, const T* dx0, const T* ex0, const T* gu,
+                      const T* lbg, const T* ubg, const T* zl0, const T* zu0, T* z_out,
+                      T* dX_out, T* kkt_out, T* zl_out, T* zu_out) {
+  const int nz = N * SU, ld = nz + 1, ln = tm.lane, NL = Team::size;
+  T *A = w.A, *g = w.g, *db = w.db;
+
+  condense<HLayout::Packed>(tm, N, wt, js, w.Mb, db, A, g, rg, dx0, ex0, (T*)nullptr,
+                            (T*)nullptr);
+  for (int i = ln; i < nz; i += NL) g[i] = g[i] + gu[i];
   tm.sync();
 
-  // ---- interior point ----
-  ipm_box_solve(tm, nz, ld, iters, H, g, lb, ub, zl0, zu0, w, zf, zl_out, zu_out);
+  // ---- interior point; its vectors over the dead condensing maps ----
+  T* zf = w.Mb + ipm_vec_size(nz);
+  ipm_box_solve<R>(tm, nz, iters, A, w.Mb, (const T*)g, lbg, ubg, zl0, zu0, zf, zl_out, zu_out);
 
   // ---- KKT projected-gradient residual against the unscaled H, g ----
   T part = T(0);
   for (int i = ln; i < nz; i += NL) {
-    const T* Hi = H + i * ld;
-    T Hz = Hi[0] * zf[0];
-    for (int j = 1; j < nz; ++j) Hz = Hz + Hi[j] * zf[j];
-    T pr = clip(zf[i] - (Hz + g[i]), lb[i], ub[i]) - zf[i];
+    T Hz = mul_rn(h_sym(A, ld, i, 0), zf[0]);
+    for (int j = 1; j < nz; ++j) Hz = fmadd(h_sym(A, ld, i, j), zf[j], Hz);
+    T pr = clip(zf[i] - (Hz + g[i]), lbg[i], ubg[i]) - zf[i];
     part = nan_max(part, pr < T(0) ? -pr : pr);
     z_out[i] = zf[i];
   }
   T kkt = tm.max(part);
   if (ln == 0) kkt_out[0] = kkt;
 
-  // ---- dX forward recurrence ----
+  // ---- dX forward recurrence, J from its source again ----
+  js.prefetch(tm, 0);
   int cur = 0;
   for (int row = ln; row < SX; row += NL) {
     db[row] = dx0[row];
@@ -110,9 +137,10 @@ MPCQ_HD void sqp_from_staged_J(const Team& tm, int N, int iters, const Weights<T
   }
   tm.sync();
   for (int k = 0; k < N; ++k) {
+    if (k + 1 < N) js.prefetch(tm, k + 1);
     const T* xk = db + cur * SX;
     T* xn = db + (1 - cur) * SX;
-    const T* Jk = Js + k * ST * SX;
+    const T* Jk = js.stage(tm, k);
     for (int row = ln; row < SX; row += NL) {
       T acc = rg[k * SX + row];
       for (int j = 0; j < SX; ++j) acc = acc + Jk[j * SX + row] * xk[j];
@@ -125,30 +153,30 @@ MPCQ_HD void sqp_from_staged_J(const Team& tm, int N, int iters, const Weights<T
   }
 }
 
-// Kernel B's scenario: stage J from device memory, then the body.
-template <typename T, typename Team>
+// Kernel B's scenario: J streamed from device memory.
+template <int R, typename T, typename Team>
 MPCQ_HD void sqp_from_J_scenario(const Team& tm, int N, int iters, const Weights<T>& wt,
                                  const T* Jg, const T* rg, const T* dx0, const T* ex0,
                                  const T* gu, const T* lbg, const T* ubg, const T* zl0,
                                  const T* zu0, T* ws, T* z_out, T* dX_out, T* kkt_out,
                                  T* zl_out, T* zu_out) {
-  for (int e = tm.lane; e < N * ST * SX; e += Team::size) ws[e] = Jg[e];
-  tm.sync();
-  sqp_from_staged_J(tm, N, iters, wt, rg, dx0, ex0, gu, lbg, ubg, zl0, zu0, ws, z_out,
-                    dX_out, kkt_out, zl_out, zu_out);
+  SqpWork<T> w(ws, N);
+  sqp_body<R>(tm, N, iters, wt, StreamedJ<T>{Jg, w.J, N}, w, rg, dx0, ex0, gu, lbg, ubg, zl0,
+              zu0, z_out, dX_out, kkt_out, zl_out, zu_out);
 }
 
-// Kernel F's scenario: linearise (X, U) into the workspace's J slot and r,
-// then kernel B's body.
-template <typename T, typename Team>
+// Kernel F's scenario: linearise (X, U) into the staged J and r, then kernel
+// B's body on them.
+template <int R, typename T, typename Team>
 MPCQ_HD void sqp_step_scenario(const Team& tm, int N, int iters, const ModelConsts<T>& c,
                                const Weights<T>& wt, const T* X, const T* U,
                                const DragView<T>& drag, const T* dx0, const T* ex0,
                                const T* gu, const T* lbg, const T* ubg, const T* zl0,
                                const T* zu0, T* ws, T* z_out, T* dX_out, T* kkt_out,
                                T* zl_out, T* zu_out) {
-  T* Js = ws;
-  T* rs = ws + sqp_ws_size(N);
+  SqpWork<T> w(ws, N);
+  T* Js = w.J;
+  T* rs = Js + N * J_STAGE;
   for (int t = tm.lane; t < N * ST; t += Team::size) {
     int k = t / ST, i = t % ST;
     Dual<T> x[SX];
@@ -161,8 +189,8 @@ MPCQ_HD void sqp_step_scenario(const Team& tm, int N, int iters, const ModelCons
   // r_k = x+_k - X_{k+1}, as the hybrid pipeline's glue forms it
   for (int e = tm.lane; e < N * SX; e += Team::size) rs[e] = rs[e] - X[SX + e];
   tm.sync();
-  sqp_from_staged_J(tm, N, iters, wt, (const T*)rs, dx0, ex0, gu, lbg, ubg, zl0, zu0, ws,
-                    z_out, dX_out, kkt_out, zl_out, zu_out);
+  sqp_body<R>(tm, N, iters, wt, StagedJ<T>{Js, N}, w, (const T*)rs, dx0, ex0, gu, lbg, ubg, zl0,
+              zu0, z_out, dX_out, kkt_out, zl_out, zu_out);
 }
 
 template <typename T>
@@ -175,9 +203,9 @@ MPCQ_HD DragView<T> drag_of(int64_t b, const T* Xb, const T* wb, const T* L, con
 }  // namespace mpcq
 
 // Dynamic shared memory of one block of the card's (f32) kernels, in bytes.
-// Kernel B: 223,424 at N = 30, 236,820 at N = 31 (an H100 block takes
-// 232,448); the warm path reads and writes its duals in device memory and
-// adds nothing here.  Kernel F: 1,560 B more at N = 30 (224,984).
+// Kernel B: 12,752 at N = 10, 132,912 at N = 40; kernel F: 20,344 and
+// 168,584.  The warm path reads and writes its duals in device memory and
+// adds nothing here.
 extern "C" int64_t mpcq_sqp_ws_bytes(int N) {
   return mpcq::sqp_ws_size(N) * int64_t(sizeof(float));
 }
@@ -188,7 +216,8 @@ extern "C" int64_t mpcq_sqp_step_ws_bytes(int N) {
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
-__global__ void __launch_bounds__(32)
+template <int R>
+__global__ void __launch_bounds__(32, (R <= 2 ? 16 : 1))
 mpcq_sqp_fused_kernel(const float* __restrict__ J, const float* __restrict__ r,
                       const float* __restrict__ dx0, const float* __restrict__ ex0,
                       const float* __restrict__ gu, const float* __restrict__ lb,
@@ -201,30 +230,14 @@ mpcq_sqp_fused_kernel(const float* __restrict__ J, const float* __restrict__ r,
   const int64_t b = blockIdx.x;
   const int nz = N * mpcq::SU;
   mpcq::WarpTeam tm{int(threadIdx.x)};
-  mpcq::sqp_from_J_scenario<float>(
-      tm, N, iters, wt, J + b * N * mpcq::ST * mpcq::SX, r + b * N * mpcq::SX,
+  mpcq::sqp_from_J_scenario<R, float>(
+      tm, N, iters, wt, J + b * N * mpcq::J_STAGE, r + b * N * mpcq::SX,
       dx0 + b * mpcq::SX, ex0 + b * (N + 1) * mpcq::SX, gu + b * nz, lb + b * nz,
       ub + b * nz, zl0 ? zl0 + b * nz : nullptr, zu0 ? zu0 + b * nz : nullptr, ws,
       z + b * nz, dX + b * (N + 1) * mpcq::SX, kkt + b, zl + b * nz, zu + b * nz);
 }
 
-extern "C" int mpcq_sqp_fused(const float* J, const float* r, const float* dx0,
-                              const float* ex0, const float* gu, const float* lb,
-                              const float* ub, const float* zl0, const float* zu0,
-                              const float* weights, float* z, float* dX, float* kkt,
-                              float* zl, float* zu, int64_t B, int N, int iters,
-                              void* stream) {
-  size_t smem = size_t(mpcq_sqp_ws_bytes(N));
-  cudaError_t err = cudaFuncSetAttribute(
-      mpcq_sqp_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  if (B > 0)
-    mpcq_sqp_fused_kernel<<<dim3(unsigned(B)), 32, smem, (cudaStream_t)stream>>>(
-        J, r, dx0, ex0, gu, lb, ub, zl0, zu0, z, dX, kkt, zl, zu, N, iters,
-        mpcq::weights_from<float>(weights));
-  return int(cudaGetLastError());
-}
-
+template <int R>
 __global__ void __launch_bounds__(32)
 mpcq_sqp_step_kernel(const float* __restrict__ X, const float* __restrict__ U,
                      const float* __restrict__ Xb, const float* __restrict__ wb,
@@ -240,12 +253,31 @@ mpcq_sqp_step_kernel(const float* __restrict__ X, const float* __restrict__ U,
   const int64_t b = blockIdx.x;
   const int nz = N * mpcq::SU;
   mpcq::WarpTeam tm{int(threadIdx.x)};
-  mpcq::sqp_step_scenario<float>(
+  mpcq::sqp_step_scenario<R, float>(
       tm, N, iters, c, wt, X + b * (N + 1) * mpcq::SX, U + b * N * mpcq::SU,
       mpcq::drag_of(b, Xb, wb, L, sf, nb), dx0 + b * mpcq::SX,
       ex0 + b * (N + 1) * mpcq::SX, gu + b * nz, lb + b * nz, ub + b * nz,
       zl0 ? zl0 + b * nz : nullptr, zu0 ? zu0 + b * nz : nullptr, ws, z + b * nz,
       dX + b * (N + 1) * mpcq::SX, kkt + b, zl + b * nz, zu + b * nz);
+}
+
+extern "C" int mpcq_sqp_fused(const float* J, const float* r, const float* dx0,
+                              const float* ex0, const float* gu, const float* lb,
+                              const float* ub, const float* zl0, const float* zu0,
+                              const float* weights, float* z, float* dX, float* kkt,
+                              float* zl, float* zu, int64_t B, int N, int iters,
+                              void* stream) {
+  const size_t smem = size_t(mpcq_sqp_ws_bytes(N));
+  const mpcq::Weights<float> wt = mpcq::weights_from<float>(weights);
+  return mpcq::with_slots<mpcq::FUSED_SLOTS>(N * mpcq::SU, [&](auto slots) {
+    constexpr int R = decltype(slots)::value;
+    cudaError_t err = mpcq::allow_smem(mpcq_sqp_fused_kernel<R>, smem);
+    if (err != cudaSuccess) return int(err);
+    if (B > 0)
+      mpcq_sqp_fused_kernel<R><<<dim3(unsigned(B)), 32, smem, (cudaStream_t)stream>>>(
+          J, r, dx0, ex0, gu, lb, ub, zl0, zu0, z, dX, kkt, zl, zu, N, iters, wt);
+    return int(cudaGetLastError());
+  });
 }
 
 extern "C" int mpcq_sqp_step(const float* X, const float* U, const float* Xb,
@@ -255,62 +287,112 @@ extern "C" int mpcq_sqp_step(const float* X, const float* U, const float* Xb,
                              const float* zu0, const float* consts, const float* weights,
                              float* z, float* dX, float* kkt, float* zl, float* zu,
                              int64_t B, int N, int iters, void* stream) {
-  size_t smem = size_t(mpcq_sqp_step_ws_bytes(N));
-  cudaError_t err = cudaFuncSetAttribute(
-      mpcq_sqp_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  if (B > 0)
-    mpcq_sqp_step_kernel<<<dim3(unsigned(B)), 32, smem, (cudaStream_t)stream>>>(
-        X, U, Xb, wb, L, sf, nb, dx0, ex0, gu, lb, ub, zl0, zu0, z, dX, kkt, zl, zu, N,
-        iters, mpcq::consts_from<float>(consts), mpcq::weights_from<float>(weights));
-  return int(cudaGetLastError());
+  const size_t smem = size_t(mpcq_sqp_step_ws_bytes(N));
+  const mpcq::ModelConsts<float> c = mpcq::consts_from<float>(consts);
+  const mpcq::Weights<float> wt = mpcq::weights_from<float>(weights);
+  return mpcq::with_slots<mpcq::FUSED_SLOTS>(N * mpcq::SU, [&](auto slots) {
+    constexpr int R = decltype(slots)::value;
+    cudaError_t err = mpcq::allow_smem(mpcq_sqp_step_kernel<R>, smem);
+    if (err != cudaSuccess) return int(err);
+    if (B > 0)
+      mpcq_sqp_step_kernel<R><<<dim3(unsigned(B)), 32, smem, (cudaStream_t)stream>>>(
+          X, U, Xb, wb, L, sf, nb, dx0, ex0, gu, lb, ub, zl0, zu0, z, dX, kkt, zl, zu, N,
+          iters, c, wt);
+    return int(cudaGetLastError());
+  });
+}
+
+// Resident blocks (one warp each) per SM of kernel B (step = 0) or kernel F
+// (step = 1) at horizon N, from the occupancy API; -1 past FUSED_SLOTS.
+extern "C" int mpcq_sqp_occupancy(int step, int N) {
+  return mpcq::with_slots<mpcq::FUSED_SLOTS>(N * mpcq::SU, [&](auto slots) {
+    constexpr int R = decltype(slots)::value;
+    return step ? mpcq::resident_blocks(mpcq_sqp_step_kernel<R>, size_t(mpcq_sqp_step_ws_bytes(N)))
+                : mpcq::resident_blocks(mpcq_sqp_fused_kernel<R>, size_t(mpcq_sqp_ws_bytes(N)));
+  });
 }
 
 #else
+#include <type_traits>
 #include <vector>
 
-// Host builds of the same code (f64, one serial lane), for the CPU tests.
-extern "C" int mpcq_sqp_fused_host_f64(const double* J, const double* r, const double* dx0,
-                                       const double* ex0, const double* gu,
-                                       const double* lb, const double* ub,
-                                       const double* zl0, const double* zu0,
-                                       const double* weights, double* z, double* dX,
-                                       double* kkt, double* zl, double* zu, int64_t B, int N,
-                                       int iters) {
+namespace {
+
+// Kernel B on the host: one serial lane (lanes = 1) or a 32-thread team.
+int sqp_fused_host(int lanes, const double* J, const double* r, const double* dx0,
+                   const double* ex0, const double* gu, const double* lb, const double* ub,
+                   const double* zl0, const double* zu0, const double* weights, double* z,
+                   double* dX, double* kkt, double* zl, double* zu, int64_t B, int N,
+                   int iters) {
   const int nz = N * mpcq::SU;
-  mpcq::Weights<double> wt = mpcq::weights_from<double>(weights);
+  if (nz > 256) return -1;
+  const mpcq::Weights<double> wt = mpcq::weights_from<double>(weights);
   std::vector<double> ws(size_t(mpcq::sqp_ws_size(N)));
-  mpcq::SerialTeam tm;
-  for (int64_t b = 0; b < B; ++b)
-    mpcq::sqp_from_J_scenario<double>(
-        tm, N, iters, wt, J + b * N * mpcq::ST * mpcq::SX, r + b * N * mpcq::SX,
+  return mpcq::run_host_team(lanes, B, [&](const auto& tm, int64_t b) {
+    constexpr int R = mpcq::host_slots<std::decay_t<decltype(tm)>>;
+    mpcq::sqp_from_J_scenario<R, double>(
+        tm, N, iters, wt, J + b * N * mpcq::J_STAGE, r + b * N * mpcq::SX,
         dx0 + b * mpcq::SX, ex0 + b * (N + 1) * mpcq::SX, gu + b * nz, lb + b * nz,
         ub + b * nz, zl0 ? zl0 + b * nz : nullptr, zu0 ? zu0 + b * nz : nullptr, ws.data(),
         z + b * nz, dX + b * (N + 1) * mpcq::SX, kkt + b, zl + b * nz, zu + b * nz);
-  return 0;
+  });
 }
 
-extern "C" int mpcq_sqp_step_host_f64(const double* X, const double* U, const double* Xb,
-                                      const double* wb, const double* L, const double* sf,
-                                      int nb, const double* dx0, const double* ex0,
-                                      const double* gu, const double* lb, const double* ub,
-                                      const double* zl0, const double* zu0,
-                                      const double* consts, const double* weights,
-                                      double* z, double* dX, double* kkt, double* zl,
-                                      double* zu, int64_t B, int N, int iters) {
+// Kernel F on the host, likewise.
+int sqp_step_host(int lanes, const double* X, const double* U, const double* Xb,
+                  const double* wb, const double* L, const double* sf, int nb,
+                  const double* dx0, const double* ex0, const double* gu, const double* lb,
+                  const double* ub, const double* zl0, const double* zu0,
+                  const double* consts, const double* weights, double* z, double* dX,
+                  double* kkt, double* zl, double* zu, int64_t B, int N, int iters) {
   const int nz = N * mpcq::SU;
-  mpcq::ModelConsts<double> c = mpcq::consts_from<double>(consts);
-  mpcq::Weights<double> wt = mpcq::weights_from<double>(weights);
+  if (nz > 256) return -1;
+  const mpcq::ModelConsts<double> c = mpcq::consts_from<double>(consts);
+  const mpcq::Weights<double> wt = mpcq::weights_from<double>(weights);
   std::vector<double> ws(size_t(mpcq::sqp_step_ws_size(N)));
-  mpcq::SerialTeam tm;
-  for (int64_t b = 0; b < B; ++b)
-    mpcq::sqp_step_scenario<double>(
+  return mpcq::run_host_team(lanes, B, [&](const auto& tm, int64_t b) {
+    constexpr int R = mpcq::host_slots<std::decay_t<decltype(tm)>>;
+    mpcq::sqp_step_scenario<R, double>(
         tm, N, iters, c, wt, X + b * (N + 1) * mpcq::SX, U + b * N * mpcq::SU,
         mpcq::drag_of(b, Xb, wb, L, sf, nb), dx0 + b * mpcq::SX,
         ex0 + b * (N + 1) * mpcq::SX, gu + b * nz, lb + b * nz, ub + b * nz,
         zl0 ? zl0 + b * nz : nullptr, zu0 ? zu0 + b * nz : nullptr, ws.data(), z + b * nz,
         dX + b * (N + 1) * mpcq::SX, kkt + b, zl + b * nz, zu + b * nz);
-  return 0;
+  });
+}
+
+}  // namespace
+
+// Host builds of the same code (f64), for the CPU tests: one serial lane,
+// and (host32) 32 threads that run the card's lane split and syncs.
+#define MPCQ_SQP_FUSED_ARGS                                                                \
+  const double *J, const double *r, const double *dx0, const double *ex0, const double *gu, \
+      const double *lb, const double *ub, const double *zl0, const double *zu0,             \
+      const double *weights, double *z, double *dX, double *kkt, double *zl, double *zu,    \
+      int64_t B, int N, int iters
+#define MPCQ_SQP_FUSED_PASS \
+  J, r, dx0, ex0, gu, lb, ub, zl0, zu0, weights, z, dX, kkt, zl, zu, B, N, iters
+extern "C" int mpcq_sqp_fused_host_f64(MPCQ_SQP_FUSED_ARGS) {
+  return sqp_fused_host(1, MPCQ_SQP_FUSED_PASS);
+}
+extern "C" int mpcq_sqp_fused_host32_f64(MPCQ_SQP_FUSED_ARGS) {
+  return sqp_fused_host(32, MPCQ_SQP_FUSED_PASS);
+}
+
+#define MPCQ_SQP_STEP_ARGS                                                                 \
+  const double *X, const double *U, const double *Xb, const double *wb, const double *L,   \
+      const double *sf, int nb, const double *dx0, const double *ex0, const double *gu,    \
+      const double *lb, const double *ub, const double *zl0, const double *zu0,            \
+      const double *consts, const double *weights, double *z, double *dX, double *kkt,     \
+      double *zl, double *zu, int64_t B, int N, int iters
+#define MPCQ_SQP_STEP_PASS                                                                  \
+  X, U, Xb, wb, L, sf, nb, dx0, ex0, gu, lb, ub, zl0, zu0, consts, weights, z, dX, kkt, zl, \
+      zu, B, N, iters
+extern "C" int mpcq_sqp_step_host_f64(MPCQ_SQP_STEP_ARGS) {
+  return sqp_step_host(1, MPCQ_SQP_STEP_PASS);
+}
+extern "C" int mpcq_sqp_step_host32_f64(MPCQ_SQP_STEP_ARGS) {
+  return sqp_step_host(32, MPCQ_SQP_STEP_PASS);
 }
 
 #endif

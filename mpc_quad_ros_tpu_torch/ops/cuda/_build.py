@@ -30,7 +30,10 @@ LIB_NAME = "libmpcq_kernels.so"
 # No --use_fast_math: expf / rsqrtf keep their IEEE-accurate forms.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-fPIC")
+# The host build is C++20 for std::barrier (the 32-thread team of common.cuh).
+HOST_FLAGS = ("-x", "c++", "-std=c++20", "-O2", "-fPIC", "-pthread")
+# Flags of the link step, by compiler.
+LINK_FLAGS = {"g++": ("-pthread",)}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points and their argument types (pointers and the stream as
@@ -48,15 +51,20 @@ DEVICE_ENTRIES = {
     "mpcq_fma": [_P, _P, _I64, _I, _I, _I, _P],
     "mpcq_mirror": [_P, _P, _I64, _I, _I, _P],
     "mpcq_elem": [_P, _P, _I64, _I, _I, _P],
+    "mpcq_sqp_occupancy": [_I, _I],
+    "mpcq_box_qp_occupancy": [_I],
     **{name: [_I] for name in WS_ENTRIES},
 }
 HOST_ENTRIES = {
     "mpcq_lin_host_f64": [_P] * 6 + [_I, _P, _P, _I64, _I, _P],
     "mpcq_sqp_fused_host_f64": [_P] * 15 + [_I64, _I, _I],
+    "mpcq_sqp_fused_host32_f64": [_P] * 15 + [_I64, _I, _I],
     "mpcq_sqp_step_host_f64": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I],
+    "mpcq_sqp_step_host32_f64": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I],
     "mpcq_condense_host_f64": [_P] * 9 + [_I64, _I],
     "mpcq_condense_ab_host_f64": [_P] * 10 + [_I64, _I],
     "mpcq_box_qp_host_f64": [_P] * 9 + [_I64, _I, _I],
+    "mpcq_box_qp_host32_f64": [_P] * 9 + [_I64, _I, _I],
     "mpcq_riccati_ipm_host_f64": [_P] * 11 + [_I64, _I, _I],
     "mpcq_fma_host_f64": [_P, _P, _I64, _I, _I, _I],
     "mpcq_mirror_host_f64": [_P, _P, _I64, _I, _I],
@@ -106,7 +114,8 @@ def _compile(cmd_prefix, flags, out_dir: pathlib.Path) -> pathlib.Path:
              for cmd in cmds]
     logs = [proc.communicate()[0] for proc in procs]
     tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
-    link = [*cmd_prefix, "-shared", "-o", str(tmp), *map(str, objs)]
+    link = [*cmd_prefix, "-shared", *LINK_FLAGS.get(cmd_prefix[0], ()), "-o", str(tmp),
+            *map(str, objs)]
     failed = [(cmd, log) for cmd, log, proc in zip(cmds, logs, procs) if proc.returncode != 0]
     if not failed:
         proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -3,15 +3,18 @@ IPM that kernels B and F also run per scenario (``csrc/ipm_box.cuh``).
 
 Replaces ``mpc_quad_ros_tpu/ops/pallas/qp_kernel.py::_qp_kernel`` (entry
 ``solve_box_qp_pdip_pallas(..., symmetrize=False)``); the CUDA source is
-``csrc/qp_kernel.cu`` (one warp per scenario, H staged in shared memory;
-bounded by the serial Cholesky latency per scenario — see the source's
-header).  ``ipm_box_solve`` is the plain version, counterpart of the Pallas
-core ``ipm_box_solve`` with its cold and warm starts.
+``csrc/qp_kernel.cu`` (one warp per scenario, H's upper triangle staged in
+the packed matrix it shares with the factor; bounded by the IPM's latency
+per scenario, which resident warps hide — see the source's header).
+``ipm_box_solve`` is the plain version, counterpart of the Pallas core
+``ipm_box_solve`` with its cold and warm starts.
 
 ``solve_box_qp_pdip_batch`` runs the plain version for CPU tensors and
 launches the kernel for CUDA tensors (f32, contiguous, sm_90), raising on
-anything else.  An nz whose workspace passes the device's shared memory per
-block (nz > 135 on an H100) raises ``ValueError`` before the launch.
+anything else.  The kernel reads H's upper triangle and diagonal: H must be
+symmetric, as the condensed H is by construction.  An nz whose workspace
+passes the device's shared memory per block (nz > 214 on an H100) raises
+``ValueError`` before the launch.
 """
 
 from __future__ import annotations
@@ -98,7 +101,7 @@ def check_smem(name: str, need: int, device, what: str) -> None:
         raise ValueError(
             f"{name}: {what} needs {need} bytes of shared memory per block, the device "
             f"allows {limit}; the condensed pipelines take N <= FUSED_N_MAX = {FUSED_N_MAX} "
-            f"(use qp_method='riccati' or 'auto' past it)")
+            f"on an H100 (use qp_method='riccati' or 'auto' past what the device allows)")
 
 
 def _launch(H, g, lb, ub, iters, zl0, zu0):

@@ -8,8 +8,9 @@ _fused_from_J_kernel`` (the "hybrid" pipeline; IPM core:
 ``_fused_kernel`` of the same file and its entry ``make_fused_sqp_step`` (the
 "fused" pipeline).  The CUDA source of both is ``csrc/sqp_fused_kernel.cu``
 with ``csrc/condense.cuh``, ``csrc/ipm_box.cuh`` and, for F,
-``csrc/model.cuh`` (one warp per scenario, everything in shared memory;
-bounded by the serial Cholesky latency per scenario — see the source's
+``csrc/model.cuh`` (one warp per scenario, one packed nz x (nz + 1) matrix
+in shared memory, kernel B streaming J from device memory; bounded by the
+IPM's latency per scenario, which resident warps hide — see the source's
 header).
 
 Kernel B's inputs: J (B, N, 17, 13), r (B, N, 13), dx0 (B, 13), ex0
@@ -22,9 +23,9 @@ starts.
 
 ``fused_sqp_from_J`` and ``fused_sqp_step`` run their plain PyTorch versions
 for CPU tensors and launch the kernels for CUDA tensors (f32, contiguous,
-sm_90), raising on anything else.  A horizon whose workspace passes the
-device's shared memory per block (N > 30 on an H100) raises ``ValueError``
-before the launch.
+sm_90), raising on anything else.  A horizon past ``FUSED_N_MAX`` = 40
+(the kernels are built for nz <= 160), or whose workspace passes the
+device's shared memory per block, raises ``ValueError`` before the launch.
 """
 
 from __future__ import annotations
@@ -36,6 +37,16 @@ from . import _build
 from .condense_common import NT, NU, NX, check_weights, condense_from_J, expand_dX
 from .lin_kernel import linearize_plain, model_constants
 from .qp_kernel import check_smem, ipm_box_solve
+
+
+def check_horizon(name: str, N: int) -> None:
+    """Raise ValueError past FUSED_N_MAX: kernels B and F are built for
+    nz = 4 N <= 160."""
+    from ..sqp import FUSED_N_MAX
+
+    if N > FUSED_N_MAX:
+        raise ValueError(f"{name}: N={N} is past FUSED_N_MAX = {FUSED_N_MAX}, the horizons "
+                         f"the kernel is built for (use qp_method='riccati' or 'auto')")
 
 
 def fused_sqp_from_J_plain(J, r, dx0, ex0, gu, lb, ub, q, p, rw, iters: int, duals=None):
@@ -66,6 +77,7 @@ def _launch(J, r, dx0, ex0, gu, lb, ub, q, p, rw, iters, duals):
         tensors.update(zl0=duals[0], zu0=duals[1])
     _build.check_cuda_inputs("sqp_fused_kernel", tensors, shapes)
     check_weights("sqp_fused_kernel", q, p, rw)
+    check_horizon("sqp_fused_kernel", N)
     lib = _build.load_library()
     check_smem("sqp_fused_kernel", lib.mpcq_sqp_ws_bytes(N), J.device, f"N={N}")
     weights = _build.host_floats(list(q) + list(p) + list(rw))
@@ -113,6 +125,7 @@ def _launch_step(X, U, dx0, ex0, gu, lb, ub, aug, consts, q, p, rw, iters, duals
         tensors.update(zl0=duals[0], zu0=duals[1])
     _build.check_cuda_inputs("sqp_step_kernel", tensors, shapes)
     check_weights("sqp_step_kernel", q, p, rw)
+    check_horizon("sqp_step_kernel", N)
     lib = _build.load_library()
     check_smem("sqp_step_kernel", lib.mpcq_sqp_step_ws_bytes(N), X.device, f"N={N}")
     consts = _build.host_floats(consts)

@@ -58,16 +58,16 @@ from .cuda.riccati_kernel import riccati_ipm_from_J
 from .cuda.sqp_fused_kernel import fused_sqp_from_J, fused_sqp_step
 from .qp import qp_kkt_residual
 
-# Shared-memory ceiling of the condensed kernels: one block holds the
-# scenario's workspace, kernel B's mpcq_sqp_ws_bytes(N) = 4 (221 N + 26 nz +
-# 26 + 3 nz (nz + 1) + 21 nz) bytes with nz = 4 N, dominated by three
-# nz x (nz+1) matrices: 223,424 B at N = 30, 236,820 B at N = 31, against the
-# 232,448 B an H100 block may opt into.  Kernel F's adds 52 N bytes (224,984 B
-# at N = 30), kernel E's three nz x (nz+1) matrices pass it at N = 34.  The
-# warm duals add nothing (read and written in device memory).  Past it a
-# dense-H method falls back to the Riccati backend, whatever the pipeline.  A
+# The condensed kernels' ceiling, the JAX package's FUSED_N_MAX
+# (mpc_quad_ros_tpu/ops/sqp.py:67).  Kernels B and F are built for nz = 4 N
+# <= 160 (five register slots a lane); one packed nz x (nz + 1) matrix a
+# scenario keeps them inside an H100 block's 232,448 B there: kernel B's
+# mpcq_sqp_ws_bytes(N) is 12,752 B at N = 10 and 132,912 B at N = 40;
+# kernel F's 168,584 B; kernel E's 129,760 B at nz = 160.  The warm
+# duals add nothing (read and written in device memory).  Past it a dense-H
+# method falls back to the Riccati backend, whatever the pipeline.  A
 # constant, so the CPU and the card dispatch alike.
-FUSED_N_MAX = 30
+FUSED_N_MAX = 40
 DENSE_H_METHODS = ("pdip",)
 PIPELINES = ("hybrid", "split", "fused")
 # "auto" takes the Riccati backend from this horizon on.  Measured with
@@ -204,8 +204,8 @@ class SQPSolver:
 
     def _resolve_qp_method(self) -> str:
         """The QP backend of this configuration: "auto" by the measured
-        crossover; a dense-H method past the condensed kernel's shared-memory
-        ceiling falls back to "riccati" with a warning."""
+        crossover; a dense-H method past the condensed kernels' ceiling
+        (FUSED_N_MAX) falls back to "riccati" with a warning."""
         m, N = self.cfg.qp_method, self.cfg.n_nodes
         if m == "projected_newton":
             raise NotImplementedError("qp_method='projected_newton' is not ported yet "
@@ -216,8 +216,8 @@ class SQPSolver:
             return "pdip" if N < AUTO_RICCATI_MIN_N else "riccati"
         if m in DENSE_H_METHODS and N > FUSED_N_MAX:
             warnings.warn(
-                f"qp_method={m!r} at n_nodes={N} exceeds the condensed kernel's "
-                f"shared-memory ceiling (N={FUSED_N_MAX}); using the O(N) Riccati "
+                f"qp_method={m!r} at n_nodes={N} exceeds the condensed kernels' "
+                f"ceiling (FUSED_N_MAX = {FUSED_N_MAX}); using the O(N) Riccati "
                 f"backend instead (qp_method='riccati' or 'auto' silences this).",
                 stacklevel=4)
             return "riccati"

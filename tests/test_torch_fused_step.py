@@ -8,8 +8,9 @@ sqp_fused_kernel.py::fused_sqp_step``) on the CPU, float64.
   z to 1e-9, dX to 1e-8 (|dX| ~ 10), KKT to 1e-9, the duals to 1e-9.
 - The kernel's own source built with g++ for the host against the plain
   version (1e-9), cold and warm, with NaN isolation between scenarios.
-- Its shared-memory workspace: kernel B's plus r, under an H100 block's
-  232,448 B up to FUSED_N_MAX = 30 and past it at 31.
+- Its shared-memory workspace: kernel B's with J staged and r in place of
+  kernel B's two-stage J buffer, under an H100 block's 232,448 B up to
+  FUSED_N_MAX = 40, beside kernels B, D and E at the same horizon.
 - On a CUDA device (skipped here): the kernel against the f64 plain version,
   cold and warm."""
 
@@ -112,9 +113,11 @@ def test_kernel_source_on_host_matches_plain(step, host_lib, warm):
 def test_workspace_fits_up_to_fused_n_max(host_lib):
     limit = 232_448          # the shared memory an H100 block may opt into
     n = sqp.FUSED_N_MAX
-    assert host_lib.mpcq_sqp_step_ws_bytes(n) == host_lib.mpcq_sqp_ws_bytes(n) + 52 * n
-    assert host_lib.mpcq_sqp_step_ws_bytes(n) <= limit < host_lib.mpcq_sqp_step_ws_bytes(n + 1)
-    assert host_lib.mpcq_condense_ws_bytes(n) < host_lib.mpcq_box_qp_ws_bytes(4 * n) <= limit
+    assert (host_lib.mpcq_sqp_step_ws_bytes(n)
+            == host_lib.mpcq_sqp_ws_bytes(n) + 4 * (n * (17 * 13 + 13) - 2 * 17 * 13))
+    assert host_lib.mpcq_sqp_step_ws_bytes(n) <= limit < host_lib.mpcq_sqp_step_ws_bytes(50)
+    assert (host_lib.mpcq_box_qp_ws_bytes(4 * n) < host_lib.mpcq_sqp_ws_bytes(n)
+            < host_lib.mpcq_condense_ws_bytes(n) <= limit)
 
 
 @pytest.mark.parametrize("warm", [False, True])

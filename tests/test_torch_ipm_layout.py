@@ -1,0 +1,203 @@
+"""The packed-matrix box-QP interior point (``csrc/ipm_box.cuh``) of kernels
+B, E and F on the CPU, float64, at every register-slot count the card uses.
+
+- Each kernel's own source built with g++ for the host, run by one serial
+  lane and by a team of 32 threads (``common.cuh::ThreadTeam``: the card's
+  lane split, syncs, reductions and broadcasts), against its plain version,
+  cold and warm-started from the plain cold solve's duals, at nz = 12, 40,
+  68 and 160 (N = 3, 10, 17, 40: one to five slots a lane), B = 4 with one
+  scenario poisoned by a NaN, which must leave the other three bitwise
+  unchanged.
+- Tolerances: z, zl, zu to 1e-9; dX to 1e-8, as the other tests of kernels
+  B and F hold it (the condensing maps carry z's rounding through N stages
+  of up to |dX| ~ 10); the KKT residual to 1e-9 of max |H| max |z|, the size
+  of the terms that H z + g cancels.  The operating point is hover with y_ref = x0 and a
+  control weight of 100: there two Cholesky codes (LAPACK's in the plain
+  version, the kernel's) agree to these bounds up to N = 40.  At the
+  perturbed trajectories of ``gn_step_inputs`` the condensed H at N = 40 is
+  ill-conditioned enough that they differ by ~1e-6 in f64 (12 iterations
+  amplify the rounding), whichever team runs the kernel.
+- The shared-memory sizes of the new layout: one packed matrix a scenario."""
+
+import numpy as np
+import pytest
+import torch
+
+from mpc_quad_ros_tpu_torch import interop
+from mpc_quad_ros_tpu_torch.models import fold_drag, make_mpc_dynamics
+from mpc_quad_ros_tpu_torch.ops import sqp
+from mpc_quad_ros_tpu_torch.ops.cuda import qp_kernel, sqp_fused_kernel
+from mpc_quad_ros_tpu_torch.ops.cuda.condense_common import condense_from_J
+from mpc_quad_ros_tpu_torch.ops.cuda.lin_kernel import linearize_plain, model_constants
+from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig, SQPSolver
+
+from test_torch_common import host_library, jax_params, port_params, ptr, rgp_batch, t
+
+B, ITERS, BAD = 4, 12, 2
+HORIZONS = (3, 10, 17, 40)
+TEAMS = {"serial": "", "lanes32": "32"}
+STEP = ("dx0", "ex0", "gu", "lb", "ub")
+f64 = dict(dtype=torch.float64)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return host_library(tmp_path_factory.mktemp("csrc_host"))
+
+
+def hover_inputs(N: int, seed: int) -> dict:
+    """One Gauss-Newton step near hover at 3 m (velocities U(-0.5, 0.5) m/s,
+    the trajectory the start state plus 1e-3 noise, U the hover input plus
+    1e-2 noise), y_ref = x0, the RGP drag with a zero posterior mean, control
+    weight 100: the step's inputs and the plain cold step's duals."""
+    rng = np.random.default_rng(seed)
+    cfg = MPCConfig(n_nodes=N, t_horizon=0.1 * N, u_ref=float(jax_params().hover_input),
+                    r_cost=(100.0,) * 4)
+    solver = SQPSolver(cfg, make_mpc_dynamics(port_params()))
+    x0 = np.zeros((B, 13))
+    x0[:, 3] = 1.0
+    x0[:, 2] = 3.0
+    x0[:, 7:10] = rng.uniform(-0.5, 0.5, (B, 3))
+    X = np.repeat(x0[:, None], N + 1, axis=1) + 1e-3 * rng.standard_normal((B, N + 1, 13))
+    U = cfg.u_ref + 1e-2 * rng.standard_normal((B, N, 4))
+    y_ref = np.repeat(x0[:, None], N, axis=1)
+    aug = fold_drag(interop.rgp_state_from_numpy(rgp_batch(B, rng, mu_scale=0.0)))
+    aug = aug.map(lambda a: a.contiguous())
+    X, U, x0, y_ref = map(t, (X, U, x0, y_ref))
+    xp, J = linearize_plain(solver.f, X, U, aug, cfg.dt)
+    keys = ("r",) + STEP
+    inp = {k: v.contiguous() for k, v in
+           zip(keys, solver.qp_inputs(X, U, x0, y_ref, y_ref[:, -1], xp))}
+    inp.update(N=N, solver=solver, X=X, U=U, aug=aug, J=J.contiguous(),
+               w=cfg.weight_tuples())
+    H, g = condense_from_J(inp["J"], inp["r"], inp["dx0"], inp["ex0"], *inp["w"])
+    inp["box"] = (H.contiguous(), (g + inp["gu"]).contiguous(), inp["lb"], inp["ub"])
+    inp["duals"] = sqp_fused_kernel.fused_sqp_from_J_plain(*_b_args(inp), *inp["w"], ITERS)[3:]
+    return inp
+
+
+@pytest.fixture(scope="module", params=HORIZONS, ids=lambda N: f"N{N}")
+def case(request):
+    return hover_inputs(request.param, seed=900 + request.param)
+
+
+def _b_args(inp):
+    return [inp[k] for k in ("J", "r") + STEP]
+
+
+def _empty(shape, n=1):
+    return [torch.empty(shape, **f64) for _ in range(n)]
+
+
+def _step_out(N):
+    nz = 4 * N
+    return _empty((B, nz)) + _empty((B, N + 1, 13)) + _empty((B,)) + _empty((B, nz), 2)
+
+
+def _weights(inp):
+    return torch.tensor([v for ws in inp["w"] for v in ws], **f64)
+
+
+def _run_b(lib, team, inp, duals, J):
+    out, w = _step_out(inp["N"]), _weights(inp)      # alive through the call
+    rc = getattr(lib, f"mpcq_sqp_fused_host{team}_f64")(
+        ptr(J), *map(ptr, _b_args(inp)[1:]), *map(ptr, duals or (None, None)), ptr(w),
+        *map(ptr, out), B, inp["N"], ITERS)
+    assert rc == 0
+    return out
+
+
+def _run_f(lib, team, inp, duals, X):
+    aug, solver = inp["aug"], inp["solver"]
+    consts = torch.tensor(model_constants(solver.f.params, solver.cfg.dt), **f64)
+    out, w = _step_out(inp["N"]), _weights(inp)
+    rc = getattr(lib, f"mpcq_sqp_step_host{team}_f64")(
+        ptr(X), ptr(inp["U"]), ptr(aug.X), ptr(aug.w), ptr(aug.L), ptr(aug.sigma_f),
+        aug.X.shape[-1], *(ptr(inp[k]) for k in STEP), *map(ptr, duals or (None, None)),
+        ptr(consts), ptr(w), *map(ptr, out), B, inp["N"], ITERS)
+    assert rc == 0
+    return out
+
+
+def _run_e(lib, team, inp, duals, H):
+    nz = 4 * inp["N"]
+    out = _empty((B, nz), 3)
+    rc = getattr(lib, f"mpcq_box_qp_host{team}_f64")(
+        ptr(H), *map(ptr, inp["box"][1:]), *map(ptr, duals or (None, None)), *map(ptr, out), B,
+        nz, ITERS)
+    assert rc == 0
+    return out
+
+
+def _check_step(inp, out, ref):
+    """z, dX, kkt, zl, zu against the plain step, at the stated bounds."""
+    H, _, _, _ = inp["box"]
+    kkt_scale = max(1.0, H.abs().max().item() * ref[0].abs().max().item())
+    tols = (1e-9, 1e-8, 1e-9 * kkt_scale, 1e-9, 1e-9)
+    for name, a, b, tol in zip(("z", "dX", "kkt", "zl", "zu"), out, ref, tols):
+        err = (a - b).abs().max().item()
+        assert err <= tol, f"{name}: {err} > {tol}"
+
+
+def _isolated(out, out_bad):
+    keep = torch.arange(B) != BAD
+    assert torch.isnan(out_bad[0][BAD]).any()
+    for a, b in zip(out_bad, out):
+        assert torch.equal(a[keep], b[keep])
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("team", TEAMS)
+def test_kernel_b_host_matches_plain(case, host_lib, team, warm):
+    duals = case["duals"] if warm else None
+    ref = sqp_fused_kernel.fused_sqp_from_J_plain(*_b_args(case), *case["w"], ITERS, duals)
+    out = _run_b(host_lib, TEAMS[team], case, duals, case["J"])
+    _check_step(case, out, ref)
+    J_bad = case["J"].clone()
+    J_bad[BAD, case["N"] // 2, 5, 8] = float("nan")
+    _isolated(out, _run_b(host_lib, TEAMS[team], case, duals, J_bad))
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("team", TEAMS)
+def test_kernel_e_host_matches_plain(case, host_lib, team, warm):
+    duals = case["duals"] if warm else None
+    ref = qp_kernel.ipm_box_solve(*case["box"], ITERS, *(duals or (None, None)))
+    out = _run_e(host_lib, TEAMS[team], case, duals, case["box"][0])
+    for name, a, b in zip(("z", "zl", "zu"), out, ref):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-9, f"{name}: {err}"
+    H_bad = case["box"][0].clone()
+    H_bad[BAD, 1, 3] = float("nan")          # the upper triangle, which the kernel reads
+    _isolated(out, _run_e(host_lib, TEAMS[team], case, duals, H_bad))
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("team", TEAMS)
+def test_kernel_f_host_matches_plain(case, host_lib, team, warm):
+    duals = case["duals"] if warm else None
+    solver = case["solver"]
+    ref = sqp_fused_kernel.fused_sqp_step_plain(
+        case["X"], case["U"], *(case[k] for k in STEP), case["aug"], solver.f, solver.cfg.dt,
+        *case["w"], ITERS, duals)
+    out = _run_f(host_lib, TEAMS[team], case, duals, case["X"])
+    _check_step(case, out, ref)
+    X_bad = case["X"].clone()
+    X_bad[BAD, 1, 8] = float("nan")
+    _isolated(out, _run_f(host_lib, TEAMS[team], case, duals, X_bad))
+
+
+def test_packed_layout_sizes(host_lib):
+    """One nz x (nz + 1) matrix a scenario: kernel B 12,752 B at N = 10
+    (36,144 B with its three matrices and J staged), kernel E 8,440 B at
+    nz = 40 (22,400 B), the triangle table included; both fit an H100 block
+    at FUSED_N_MAX = 40."""
+    limit = 232_448
+    assert host_lib.mpcq_sqp_ws_bytes(10) == 4 * (40 * 41 + 40 + 26 * 40 + 26 + 2 * 221) == 12_752
+    assert host_lib.mpcq_box_qp_ws_bytes(40) == 4 * (40 * 41 + 2 * 40 + 780 // 2) == 8_440
+    assert host_lib.mpcq_sqp_ws_bytes(10) <= 14 * 1024 and host_lib.mpcq_box_qp_ws_bytes(40) <= 10 * 1024
+    n = sqp.FUSED_N_MAX
+    assert host_lib.mpcq_sqp_ws_bytes(n) == 132_912 and host_lib.mpcq_sqp_step_ws_bytes(n) == 168_584
+    assert host_lib.mpcq_sqp_step_ws_bytes(n) <= limit
+    # kernel E's own ceiling: nz = 214
+    assert host_lib.mpcq_box_qp_ws_bytes(214) <= limit < host_lib.mpcq_box_qp_ws_bytes(215)

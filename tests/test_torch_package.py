@@ -16,7 +16,7 @@ import torch
 from mpc_quad_ros_tpu_torch import interop
 from mpc_quad_ros_tpu_torch.models import fold_drag, make_mpc_dynamics
 from mpc_quad_ros_tpu_torch.ops.cuda import _build, lin_kernel, sqp_fused_kernel
-from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig, SQPSolver, init_carry
+from mpc_quad_ros_tpu_torch.ops.sqp import SMALL_BATCH, MPCConfig, SQPSolver, init_carry
 
 from test_torch_common import (as_numpy, jax_params, jax_rgp, port_params, require_cuda,
                                rgp_batch, solve_inputs, t)
@@ -117,7 +117,7 @@ def test_cuda_solve_runs_both_kernels():
     dev = require_cuda()
     lin_kernel.linearize.launches = 0
     sqp_fused_kernel.fused_sqp_from_J.launches = 0
-    inp = solve_inputs(4, seed=32)
+    inp = solve_inputs(SMALL_BATCH, seed=32)     # smaller batches take kernels A, J, E
     p = port_params().map(lambda a: a.float().to(dev))
     cfg = MPCConfig(u_ref=float(p.hover_input))
     solver = SQPSolver(cfg, make_mpc_dynamics(p))

@@ -134,7 +134,7 @@ def test_riccati_passes_duals_through():
 def test_pdip_past_the_ceiling_takes_riccati_under_every_pipeline(pipeline):
     N = FUSED_N_MAX + 1
     solver = _solver(port_params(), n_nodes=N, t_horizon=0.1 * N, pipeline=pipeline)
-    with pytest.warns(UserWarning, match="shared-memory ceiling"):
+    with pytest.warns(UserWarning, match="condensed kernels' ceiling"):
         step = solver._step(SMALL_BATCH)
     assert step == solver._gn_step_batch_riccati
 

@@ -104,7 +104,7 @@ def test_cuda_kernel_matches_f64_plain(qp, warm):
 
 def test_cuda_kernel_refuses_past_its_ceiling():
     dev = require_cuda()
-    nz = 136
+    nz = 215             # 232,448 B a block holds kernel E's workspace up to nz = 214
     H = torch.eye(nz, device=dev).expand(2, nz, nz).contiguous()
     v = torch.zeros(2, nz, device=dev)
     with pytest.raises(ValueError, match="shared memory"):

@@ -148,7 +148,7 @@ def test_pdip_past_the_ceiling_takes_riccati():
         assert _resolve("pdip", sqp.FUSED_N_MAX) == "pdip"
         assert _resolve("riccati", sqp.FUSED_N_MAX) == "riccati"
     N = sqp.FUSED_N_MAX + 1
-    with pytest.warns(UserWarning, match="shared-memory ceiling"):
+    with pytest.warns(UserWarning, match="condensed kernels' ceiling"):
         assert _resolve("pdip", N) == "riccati"
 
     inp = solve_inputs(2, seed=42, N=N)

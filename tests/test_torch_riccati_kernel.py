@@ -1,5 +1,5 @@
 """Kernel C (the Riccati-factorised box IPM, ``ops/cuda/riccati_kernel.py``)
-and kernel B's shared-memory ceiling, on the CPU in float64.
+and kernel B's shared memory up to FUSED_N_MAX, on the CPU in float64.
 
 - The plain version against the JAX package's XLA oracle
   ``ops/riccati.solve_ocp_box_riccati_ipm`` (vmapped), with J formed from A
@@ -11,12 +11,13 @@ and kernel B's shared-memory ceiling, on the CPU in float64.
 - The kernel's own source built with g++ for the host against the plain
   version: 1e-12 (measured 3e-15), and a NaN in one scenario leaves every
   other scenario bitwise unchanged.
-- ``mpcq_sqp_ws_bytes`` of the host build: kernel B's workspace is 223,424
-  bytes at N=30 and 236,820 at N=31, so ``FUSED_N_MAX`` = 30 is the largest
-  N under an H100 block's 232,448 bytes.
+- ``mpcq_sqp_ws_bytes`` of the host build: kernel B's workspace (one packed
+  nz x (nz + 1) matrix, J streamed) is 12,752 bytes at N=10 and 132,912 at
+  ``FUSED_N_MAX`` = 40, the JAX package's ceiling, under an H100 block's
+  232,448 bytes; its shared memory alone would pass that only at N=54.
 - On a CUDA device (skipped here): kernel C against its f64 plain version,
-  kernel B's ValueError at N=31, and solve_batch(qp_method="riccati") at
-  N = 40, 80, 160 through kernels A and C only."""
+  kernel B's ValueError at N=41, and solve_batch(qp_method="pdip") past
+  FUSED_N_MAX, at N = 41, 80, 160, through kernels A and C only."""
 
 import warnings
 
@@ -126,8 +127,10 @@ def test_kernel_source_on_host_matches_plain(host_lib, N):
 
 def test_fused_n_max_is_kernel_b_shared_memory_ceiling(host_lib):
     ws = host_lib.mpcq_sqp_ws_bytes
-    assert (ws(30), ws(31)) == (223_424, 236_820)
-    assert ws(sqp.FUSED_N_MAX) <= H100_SMEM_PER_BLOCK < ws(sqp.FUSED_N_MAX + 1)
+    assert (ws(10), ws(40)) == (12_752, 132_912)
+    assert ws(sqp.FUSED_N_MAX) <= H100_SMEM_PER_BLOCK
+    # the shared memory is no longer what stops kernel B at FUSED_N_MAX
+    assert ws(53) <= H100_SMEM_PER_BLOCK < ws(54)
     # kernel C (J in global memory) launches far past it: 105 N + 696 floats
     ric = host_lib.mpcq_riccati_ws_bytes
     assert ric(40) == 4 * (105 * 40 + 696) == 19_584
@@ -157,7 +160,7 @@ def test_cuda_kernel_b_refuses_past_its_ceiling():
                                           Q, PT, RD, ITERS)
 
 
-@pytest.mark.parametrize("N", [40, 80, 160])
+@pytest.mark.parametrize("N", [sqp.FUSED_N_MAX + 1, 80, 160])
 def test_cuda_solve_batch_riccati_runs_kernels_a_and_c(N):
     dev = require_cuda()
     inp = solve_inputs(64, seed=43, N=N)
