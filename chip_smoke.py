@@ -7,12 +7,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device -> exit 1 (there is no CPU fallback);
 2. build: nvcc compiles ``mpc_quad_ros_tpu_torch/csrc/*.cu`` (timed); then
-   one line per kernel B, E and F at N = 10 and 40 (nz = 40 and 160): shared
-   memory per block, registers and spills (the build log's ``-Xptxas -v``),
-   resident blocks of one warp per SM (the occupancy API); kernel B must
-   keep at least 12 warps resident per SM at N = 10;
+   one line per kernel B, E and F at N = 10 and 40 (nz = 40 and 160), kernel
+   A at N = 10 and kernel C at N = 10 and 40: shared memory per block,
+   registers and spills (the build log's ``-Xptxas -v``), resident blocks
+   and warps per SM (the occupancy API); kernel B must keep at least 12
+   warps resident per SM at N = 10, kernel C more than 11 at N = 40;
 3. kernel A (RK4 linearisation) against its plain PyTorch version, in f32
-   and against the f64 plain version, at the main-path shapes;
+   and against the f64 plain version, at the main-path shapes, and NaN
+   isolation between scenarios;
 4. kernel B (condense + IPM + KKT + dX) against the f64 plain version, the
    KKT floor, and NaN isolation between scenarios;
 5. kernel C (the Riccati-factorised box IPM) at B=65536, N=40 against its
@@ -62,7 +64,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     B=16384 (kernel B alone, the hybrid step's glue);
 18. ``bench/suite.py::throughput`` over B = 1024, 4096, 16384, 65536;
 19. ``bench/probe_hybrid.py::riccati_profile``: kernel C alone, N = 10, 20,
-    40 at B=1024, 2, 6 and 12 IPM iterations;
+    40 at B=1024, 2, 6 and 12 IPM iterations; then ``riccati_breakdown``:
+    one step of the Riccati slice (N=40, B=65536) by part (kernel A, the
+    glue, kernel C, ``_riccati_finish``) and whole;
 20. ``bench/headline.py::measure`` without the closed loop (phase 9 runs it).
 
 The launch counters are reset just before each path (phases 8-9, 10 split,
@@ -168,6 +172,9 @@ BENCH_B = 16384
 # packed matrix so that at least this many reside (6 with three matrices
 # and J staged).
 RESIDENT_WARPS_MIN = 12
+# Kernel C's resident warps per SM at N = 40 must pass the 11 that its
+# workspace allowed with K and kff in shared memory (19,584 B a block).
+RICCATI_WARPS_BEFORE = 11
 T0 = time.perf_counter()
 
 
@@ -272,9 +279,30 @@ def phase_build() -> None:
 def phase_residency(regs: dict) -> None:
     """Kernels B, E and F at N = 10 and 40: shared memory per block, the
     registers and spills of the instantiation that runs there (R register
-    slots a lane, nz <= 32 R), resident one-warp blocks per SM."""
+    slots a lane, nz <= 32 R), resident one-warp blocks per SM; kernel A
+    (blocks of 128 threads) at N = 10, kernel C (one warp a block) at N = 10
+    and 40."""
     lib = _build.load_library()
     rows = {}
+    blocks = lib.mpcq_lin_occupancy(10)
+    row = {"kernel": "lin_kernel", "instantiation": "lin", "N": 10,
+           "smem_bytes": lib.mpcq_lin_ws_bytes(10), **regs.get("lin", {}),
+           "resident_blocks_per_sm": blocks, "resident_warps_per_sm": 4 * blocks}
+    emit("residency", **row)
+    check(blocks > 0, f"residency: kernel A does not launch: {row}")
+    for N in (10, N_LONG):
+        blocks = lib.mpcq_riccati_occupancy(N)
+        row = {"kernel": "riccati_ipm", "instantiation": "riccati", "N": N,
+               "smem_bytes": lib.mpcq_riccati_ws_bytes(N),
+               "scratch_bytes_per_scenario": lib.mpcq_riccati_scratch_bytes(N),
+               **regs.get("riccati", {}), "resident_blocks_per_sm": blocks,
+               "resident_warps_per_sm": blocks}
+        rows[("riccati_ipm", N)] = row
+        emit("residency", **row)
+    c40 = rows[("riccati_ipm", N_LONG)]["resident_warps_per_sm"]
+    check(c40 > RICCATI_WARPS_BEFORE,
+          f"residency: kernel C keeps {c40} warps per SM at N={N_LONG}, not more than "
+          f"{RICCATI_WARPS_BEFORE}")
     for N in (10, N_LONG):
         nz = 4 * N
         slots = -(-nz // 32)
@@ -309,14 +337,27 @@ def phase_kernel_a(device) -> dict:
            "J_vs_plain": (J - J_p).abs().max().item(),
            "xp_vs_f64": (xp.double() - xp_d).abs().max().item(),
            "J_vs_f64": (J.double() - J_d).abs().max().item()}
+    del xp_p, J_p, xp_d, J_d
+
+    # NaN isolation: poison one scenario's trajectory (a quaternion entry,
+    # which every tangent depends on); every other scenario's xp and J must
+    # be bitwise unchanged
+    bad = 7
+    X_bad = X.clone()
+    X_bad[bad, 3, 4] = float("nan")
+    nan_isolated = isolated(bad, (xp, J), lin_kernel.linearize(X_bad, U, aug, f, dt))
+    del X_bad
+
     ms = timed_ms(lambda: lin_kernel.linearize(X, U, aug, f, dt), reps=10)
     plain_ms = timed_ms(lambda: lin_kernel.linearize_plain(f, X, U, aug, dt), reps=2)
     work = bounds.lin_work(SOLVE_B, solver.cfg.n_nodes, N_BASIS)
-    emit("kernel_a", B=SOLVE_B, **err, ms=ms, plain_ms=plain_ms, **work, tol_xp=LIN_XP_TOL,
-         tol_J=LIN_J_TOL)
+    emit("kernel_a", B=SOLVE_B, **err, nan_isolated=nan_isolated, ms=ms, plain_ms=plain_ms,
+         smem_bytes=_build.load_library().mpcq_lin_ws_bytes(solver.cfg.n_nodes), **work,
+         tol_xp=LIN_XP_TOL, tol_J=LIN_J_TOL)
     check(torch.isfinite(J).all() and torch.isfinite(xp).all(), "kernel A: non-finite output")
     check(err["xp_vs_plain"] <= LIN_XP_TOL and err["xp_vs_f64"] <= LIN_XP_TOL, f"kernel A xp: {err}")
     check(err["J_vs_plain"] <= LIN_J_TOL and err["J_vs_f64"] <= LIN_J_TOL, f"kernel A J: {err}")
+    check(nan_isolated, "kernel A: a NaN scenario changed another scenario's outputs")
     return {"max_abs_err": max(err["xp_vs_plain"], err["J_vs_plain"]), "ms": ms, "plain_ms": plain_ms,
             **work}
 
@@ -397,8 +438,10 @@ def phase_kernel_c(device) -> dict:
     plain_ms = timed_ms(lambda: riccati_kernel.solve_ocp_box_riccati_ipm_plain(
         *args, *w, cfg.qp_iters), reps=1)
     work = bounds.riccati_work(SOLVE_B, N_LONG, cfg.qp_iters)
+    lib = _build.load_library()
     emit("kernel_c", B=SOLVE_B, N=N_LONG, **err, nan_isolated=nan_isolated,
-         smem_bytes=_build.load_library().mpcq_riccati_ws_bytes(N_LONG), ms=ms,
+         smem_bytes=lib.mpcq_riccati_ws_bytes(N_LONG),
+         scratch_bytes=SOLVE_B * lib.mpcq_riccati_scratch_bytes(N_LONG), ms=ms,
          plain_ms=plain_ms, **work, tol_du=RIC_DU_TOL, tol_dX_rel=RIC_DX_REL_TOL)
     check(torch.isfinite(du).all() and torch.isfinite(dX).all(), "kernel C: non-finite output")
     check(err["du_kernel_vs_f64"] < RIC_DU_TOL and err["du_plain_vs_f64"] < RIC_DU_TOL,
@@ -996,6 +1039,14 @@ def phase_riccati_profile(device, peak) -> None:
           f"riccati profile: {prof}")
 
 
+def phase_riccati_breakdown(device) -> None:
+    brk = probe_hybrid.riccati_breakdown(SOLVE_B, N_LONG, device=device)
+    emit("riccati_breakdown", **brk)
+    check(finite(brk) and all(brk[k] > 0 for k in ("lin_kernel_s", "riccati_kernel_s",
+                                                    "riccati_finish_s", "step_s")),
+          f"riccati breakdown: {brk}")
+
+
 def phase_headline(device, peak) -> None:
     line = headline.measure(skip_closed=True, device=device, peak=peak)
     emit("headline", **line)
@@ -1099,7 +1150,8 @@ def main() -> None:
         paths["phases"] = drive(lambda: phase_table(device, peak))
         paths["breakdown"] = drive(lambda: phase_breakdown(device))
         paths["throughput"] = drive(lambda: phase_throughput(device))
-        paths["riccati_profile"] = drive(lambda: phase_riccati_profile(device, peak))
+        paths["riccati_profile"] = drive(lambda: phase_riccati_profile(device, peak),
+                                         lambda: phase_riccati_breakdown(device))
         paths["headline"] = drive(lambda: phase_headline(device, peak))
     finally:
         for (mod, name), fn in zip(PLAINS, saved):

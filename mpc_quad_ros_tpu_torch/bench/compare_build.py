@@ -1,19 +1,23 @@
-"""Kernels B, E and F of this checkout against another checkout's, on one
-card, in one process, on the same inputs.
+"""Kernels A, B, C, E and F of this checkout against another checkout's, on
+one card, in one process, on the same inputs.
 
     python -m mpc_quad_ros_tpu_torch.bench.compare_build --other PATH [--B 65536]
 
 PATH is another checkout of this repository (an earlier commit, unpacked).
 Its ``ops/cuda/_build.py`` builds its own ``csrc/`` into its own ``build/``,
-and its C entry points ``mpcq_sqp_fused``, ``mpcq_box_qp`` and
-``mpcq_sqp_step`` (the same C signatures) are called directly with this
+and its C entry points ``mpcq_lin``, ``mpcq_sqp_fused``, ``mpcq_riccati_ipm``,
+``mpcq_box_qp`` and ``mpcq_sqp_step`` are called directly with this
 checkout's tensors: the solve cell's next Gauss-Newton step at B scenarios,
-N=10 (kernel B fed kernel A's J, kernel E on kernel D's QP, kernel F on the
-trajectory), cold and warm-started from the first solve's duals.  One JSON
-line per kernel and start: whether the two libraries' outputs are bitwise
-equal, their largest difference, and each library's CUDA-event time, taken
-in turns (other, this, this, other).  The launch counters of this
-checkout's wrappers are not touched: the calls go to the C entries.
+N=10 (kernel A on the trajectory, kernel B fed kernel A's J, kernel E on
+kernel D's QP, kernel F on the trajectory; B, E and F cold and warm-started
+from the first solve's duals), and kernel C at N=40 on kernel A's J of the
+same cell's step at that horizon.  Kernel C's entry takes a device scratch
+where the library has ``mpcq_riccati_scratch_bytes`` (its other arguments
+are the same).  One JSON line per kernel and start: whether the two
+libraries' outputs are bitwise equal, their largest difference, and each
+library's CUDA-event time, taken in turns (other, this, this, other).  The
+launch counters of this checkout's wrappers are not touched: the calls go to
+the C entries.
 """
 
 from __future__ import annotations
@@ -61,8 +65,46 @@ def step_inputs(B: int, device) -> dict:
             "iters": cfg.qp_iters, "N": cfg.n_nodes, "f": solver.f, "dt": cfg.dt}
 
 
+def riccati_step_inputs(B: int, device, N: int = 40) -> dict:
+    """Kernel C's arguments at the solve cell's next step at horizon N (one
+    warm-up solve through kernels A and C): kernel A's J, then the glue."""
+    solver, carry, x0, y_ref, rgp = operating_point(B, device, mu_scale=0.3, N=N,
+                                                    qp_method="riccati")
+    carry, _ = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
+    cfg = solver.cfg
+    aug = fold_drag(rgp).map(lambda a: a.contiguous())
+    xp, J = lin_kernel.linearize(carry.X, carry.U, aug, solver.f, cfg.dt)
+    args = [J, *solver.riccati_inputs(carry.X, carry.U, x0, y_ref, y_ref[:, -1], xp)]
+    return {"args": args, "weights": _build.host_floats([v for w in cfg.weight_tuples() for v in w]),
+            "iters": cfg.qp_iters, "N": N}
+
+
 def _ptrs(tensors):
     return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def run_a(lib, inp, _duals):
+    X, U, aug = inp["X"], inp["U"], inp["aug"]
+    B, N = U.shape[:2]
+    out = [torch.empty((B, N, 13), device=X.device), torch.empty((B, N, 17, 13), device=X.device)]
+    rc = lib.mpcq_lin(X.data_ptr(), U.data_ptr(), *_ptrs((aug.X, aug.w, aug.L, aug.sigma_f)),
+                      aug.X.shape[-1], *_ptrs(out), B, N, inp["consts"].data_ptr(),
+                      torch.cuda.current_stream().cuda_stream)
+    _build.check_status("compare_build kernel A", rc)
+    return out
+
+
+def run_c(lib, inp, _duals):
+    J = inp["args"][0]
+    B, N = J.shape[:2]
+    out = [torch.empty((B, N, 4), device=J.device), torch.empty((B, N + 1, 13), device=J.device)]
+    scratch = ([torch.empty((B, lib.mpcq_riccati_scratch_bytes(N) // 4), device=J.device)]
+               if hasattr(lib, "mpcq_riccati_scratch_bytes") else [])
+    rc = lib.mpcq_riccati_ipm(*_ptrs(inp["args"]), inp["weights"].data_ptr(), *_ptrs(out),
+                              *_ptrs(scratch), B, N, inp["iters"],
+                              torch.cuda.current_stream().cuda_stream)
+    _build.check_status("compare_build kernel C", rc)
+    return out
 
 
 def run_b(lib, inp, duals):
@@ -101,19 +143,25 @@ def run_f(lib, inp, duals):
     return out
 
 
-KERNELS = {"B": run_b, "E": run_e, "F": run_f}
+# kernel -> (its run, whether it takes warm duals, its inputs' horizon)
+KERNELS = {"A": (run_a, False, 10), "B": (run_b, True, 10), "C": (run_c, False, 40),
+           "E": (run_e, True, 10), "F": (run_f, True, 10)}
 
 
 def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
     dev = torch.device("cuda", 0)
     libs = {"other": other_library(other), "this": _build.load_library()}
-    inp = step_inputs(B, dev)
+    inputs = {10: step_inputs(B, dev)}
     rows = []
-    for name, run in KERNELS.items():
-        for start, duals in (("cold", (None, None)), ("warm", inp["duals"])):
+    for name, (run, warm, N) in KERNELS.items():
+        if N not in inputs:
+            inputs[N] = riccati_step_inputs(B, dev, N)
+        inp = inputs[N]
+        starts = (("cold", (None, None)),) + ((("warm", inp["duals"]),) if warm else ())
+        for start, duals in starts:
             outs = {k: run(lib, inp, duals) for k, lib in libs.items()}
             torch.cuda.synchronize()
-            row = {"kernel": name, "start": start, "B": B, "N": inp["N"],
+            row = {"kernel": name, "start": start if warm else "-", "B": B, "N": inp["N"],
                    "bitwise": all(torch.equal(a, b) for a, b in zip(outs["this"], outs["other"])),
                    "max_abs_diff": max((a - b).abs().max().item()
                                        for a, b in zip(outs["this"], outs["other"])),

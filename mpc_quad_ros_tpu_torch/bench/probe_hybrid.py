@@ -33,6 +33,7 @@ from ..models import fold_drag, hummingbird_params, make_mpc_dynamics
 from ..ops.cuda import _build, lin_kernel, riccati_kernel, sqp_fused_kernel
 from ..ops.sqp import MPCConfig, SQPSolver, init_carry
 from . import bounds
+from .operating_point import operating_point
 from .phases import (QW, RW, _bench_setup, device_kind, device_seconds, line_fit,
                      resolve_device, time_solves, vpu_peak)
 
@@ -90,6 +91,34 @@ def hybrid_breakdown(B: int = 16384, device="cuda", chained: int = 5, reps: int 
     return {"batch": B, "device_kind": device_kind(dev), "full_hybrid_s": full_s,
             "lin_standalone_s": lin_s, "jfed_standalone_12it_s": jfed_s, "glue_s": glue,
             "glue_fraction": glue / full_s, "us_per_solve": full_s / B * 1e6}
+
+
+def riccati_breakdown(B: int = 65536, N: int = 40, device="cuda", reps: int = 3) -> dict:
+    """One Gauss-Newton step of the Riccati slice by part: the solve cell at
+    horizon N (``qp_method="riccati"``, what "auto" takes there) after one
+    warm-up solve; kernel A's linearisation, the glue that forms kernel C's
+    inputs, kernel C, and ``_riccati_finish`` (the four-candidate rollout and
+    line search, kernel A again, the adjoint KKT), each timed alone, and the
+    whole step (``_gn_step_batch_riccati``) from the same carry."""
+    dev = resolve_device(device)
+    solver, carry, x0, y_ref, rgp = operating_point(B, dev, N=N, qp_method="riccati")
+    carry, _ = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
+    cfg = solver.cfg
+    aug = fold_drag(rgp).map(lambda a: a.contiguous())
+    X, U, yN = carry.X, carry.U, y_ref[:, -1]
+    lin = lambda: solver._linearize(X, U, aug)
+    xp, J = lin()
+    glue = lambda: solver.riccati_inputs(X, U, x0, y_ref, yN, xp)
+    args = (J, *glue())
+    kern = lambda: riccati_kernel.riccati_ipm_from_J(*args, *cfg.weight_tuples(), cfg.qp_iters)
+    dU, _ = kern()
+    parts = {"lin_kernel_s": lin, "glue_s": glue, "riccati_kernel_s": kern,
+             "riccati_finish_s": lambda: solver._riccati_finish(U, x0, y_ref, yN, aug, dU),
+             "step_s": lambda: solver._gn_step_batch_riccati(X, U, carry.zl, carry.zu, x0, y_ref,
+                                                             yN, aug)}
+    out = {"batch": B, "N": N, "iters": cfg.qp_iters, "device_kind": device_kind(dev)}
+    out.update({k: device_seconds(fn, reps, dev) for k, fn in parts.items()})
+    return out
 
 
 # ------------------------------------------------------------------ #

@@ -97,12 +97,21 @@ struct WarpTeam {
   // (cp.async, 4 bytes a copy, lane-strided) as one commit group.
   template <typename T>
   __device__ __forceinline__ void copy_async(T* dst, const T* src, int n) const {
+    copy_async_part(dst, src, n);
+    commit_async();
+  }
+  // The same copy into the lane's open group, which commit_async() closes:
+  // one group of several spans.
+  template <typename T>
+  __device__ __forceinline__ void copy_async_part(T* dst, const T* src, int n) const {
     static_assert(sizeof(T) == 4, "cp.async copies 4-byte elements here");
     for (int e = lane; e < n; e += size) {
       const unsigned d = unsigned(__cvta_generic_to_shared(dst + e));
       asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src + e)
                    : "memory");
     }
+  }
+  __device__ __forceinline__ void commit_async() const {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
   // Waits until at most `Pending` of this lane's latest commit groups are in
@@ -123,12 +132,12 @@ template <typename K> cudaError_t allow_smem(K kernel, size_t smem) {
                               int(cudaSharedmemCarveoutMaxShared));
 }
 
-// Resident blocks of one warp per SM of a kernel at `smem`, from the
-// occupancy API, or -1.
-template <typename K> int resident_blocks(K kernel, size_t smem) {
+// Resident blocks of `threads` threads (one warp unless given) per SM of a
+// kernel at `smem`, from the occupancy API, or -1.
+template <typename K> int resident_blocks(K kernel, size_t smem, int threads = 32) {
   int blocks = 0;
   if (allow_smem(kernel, smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32, smem) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem) != cudaSuccess)
     return -1;
   return blocks;
 }
@@ -144,8 +153,12 @@ struct SerialTeam {
   template <typename T> MPCQ_HD T max(T v) const { return v; }
   template <typename T> MPCQ_HD T bcast(T v, int) const { return v; }
   template <typename T> MPCQ_HD void copy_async(T* dst, const T* src, int n) const {
+    copy_async_part(dst, src, n);
+  }
+  template <typename T> MPCQ_HD void copy_async_part(T* dst, const T* src, int n) const {
     for (int e = 0; e < n; ++e) dst[e] = src[e];
   }
+  MPCQ_HD void commit_async() const {}
   template <int Pending> MPCQ_HD void wait_async() const {}
 };
 
@@ -210,8 +223,12 @@ struct ThreadTeam {
   }
   template <typename T> T bcast(T v, int src) const { return T(exchange(double(v))[src]); }
   template <typename T> void copy_async(T* dst, const T* src, int n) const {
+    copy_async_part(dst, src, n);
+  }
+  template <typename T> void copy_async_part(T* dst, const T* src, int n) const {
     for (int e = lane; e < n; e += size) dst[e] = src[e];
   }
+  void commit_async() const {}
   template <int Pending> void wait_async() const { sync(); }
 };
 

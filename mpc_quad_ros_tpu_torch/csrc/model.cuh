@@ -1,9 +1,11 @@
 // The MPC model of the linearisation kernels: the folded-RGP drag model f,
 // its RK4 step, and the forward dual numbers that give the step's tangents.
 //
-// Shared by kernel A (lin_kernel.cu: one thread per (column, tangent)) and
-// kernel F (sqp_fused_kernel.cu: one warp per scenario, its lanes walking
-// the scenario's (stage, tangent) items), so both linearise by the same code.
+// Shared by kernel A (lin_kernel.cu: the primal step once per column, then
+// the tangents with the drag's moments read back) and kernel F
+// (sqp_fused_kernel.cu: one warp per scenario, its lanes walking the
+// scenario's (stage, tangent) items of lin_item), so both linearise by the
+// same model code.
 // The model is written once as a template over the scalar type; a tangent
 // item runs it on forward dual numbers {val, der} seeded with the unit vector
 // of its input, so no derivative is written by hand.  The drag mean uses the
@@ -74,9 +76,10 @@ MPCQ_HD T drag_mean(T vb, const DragView<T>& g, int a) {
 }
 
 // Dual version: value as above, tangent = Jdiag * dvb with
-// Jdiag = sum_j k_j w_j (-(vb - X_j) / L^2)  (the JAX custom JVP rule).
+// Jdiag = sum_j k_j w_j (-(vb - X_j) / L^2)  (the JAX custom JVP rule);
+// Jdiag also into *jd_out when given (kernel A records it).
 template <typename T>
-MPCQ_HD Dual<T> drag_mean(Dual<T> vb, const DragView<T>& g, int a) {
+MPCQ_HD Dual<T> drag_mean(Dual<T> vb, const DragView<T>& g, int a, T* jd_out = nullptr) {
   const T* X = g.Xb + a * g.nb;
   const T* w = g.wb + a * g.nb;
   T L = g.L[a], sf = g.sf[a];
@@ -87,13 +90,21 @@ MPCQ_HD Dual<T> drag_mean(Dual<T> vb, const DragView<T>& g, int a) {
     m = m + kw;
     jd = jd + kw * (-diff / L2);
   }
+  if (jd_out) *jd_out = jd;
   return {m, jd * vb.d};
 }
 
-// The MPC model f(x, u) with the folded drag — the formulas of _make_f.
-template <typename S, typename T>
-MPCQ_HD void model_f(const S* x, const S* u, const ModelConsts<T>& c,
-                     const DragView<T>& g, S* dx) {
+// The drag of RK4 stage s (0-3): a DragView is the same at every stage;
+// kernel A's recording and recorded drags overload this.
+template <typename T> MPCQ_HD const DragView<T>& stage_drag(const DragView<T>& g, int) {
+  return g;
+}
+
+// The MPC model f(x, u) with the folded drag — the formulas of _make_f.  The
+// drag G is a DragView, or any type with an `nb` and a drag_mean overload
+// (kernel A's drags).
+template <typename S, typename T, typename G>
+MPCQ_HD void model_f(const S* x, const S* u, const ModelConsts<T>& c, const G& g, S* dx) {
   S qw = x[3], qx = x[4], qy = x[5], qz = x[6];
   S vx = x[7], vy = x[8], vz = x[9];
   S wx = x[10], wy = x[11], wz = x[12];
@@ -144,18 +155,19 @@ MPCQ_HD void model_f(const S* x, const S* u, const ModelConsts<T>& c,
   dx[12] = (tz + c.J01 * wx * wy) / c.J2;
 }
 
-// x+ = x + dt/6 (k1 + 2 k2 + 2 k3 + k4), the control held.
-template <typename S, typename T>
-MPCQ_HD void rk4(S* x, const S* u, const ModelConsts<T>& c, const DragView<T>& g) {
+// x+ = x + dt/6 (k1 + 2 k2 + 2 k3 + k4), the control held; stage s's model
+// takes stage_drag(g, s).
+template <typename S, typename T, typename G>
+MPCQ_HD void rk4(S* x, const S* u, const ModelConsts<T>& c, const G& g) {
   S k[NX], acc[NX], xs[NX];
   const T two = T(2);
-  model_f(x, u, c, g, k);                                    // k1
+  model_f(x, u, c, stage_drag(g, 0), k);                     // k1
   for (int j = 0; j < NX; ++j) { acc[j] = k[j]; xs[j] = x[j] + c.h2 * k[j]; }
-  model_f(xs, u, c, g, k);                                   // k2
+  model_f(xs, u, c, stage_drag(g, 1), k);                    // k2
   for (int j = 0; j < NX; ++j) { acc[j] = acc[j] + two * k[j]; xs[j] = x[j] + c.h2 * k[j]; }
-  model_f(xs, u, c, g, k);                                   // k3
+  model_f(xs, u, c, stage_drag(g, 2), k);                    // k3
   for (int j = 0; j < NX; ++j) { acc[j] = acc[j] + two * k[j]; xs[j] = x[j] + c.h * k[j]; }
-  model_f(xs, u, c, g, k);                                   // k4
+  model_f(xs, u, c, stage_drag(g, 3), k);                    // k4
   for (int j = 0; j < NX; ++j) x[j] = x[j] + c.h6 * (acc[j] + k[j]);
 }
 
@@ -163,9 +175,9 @@ MPCQ_HD void rk4(S* x, const S* u, const ModelConsts<T>& c, const DragView<T>& g
 // x+ of the RK4 step in x[j].v and row i of its tangents J = d x+ / d (x, u)
 // in x[j].d.  The caller writes them out (after the step, so no output
 // pointer stays live across it).
-template <typename T>
-MPCQ_HD void lin_item(const T* x0, const T* u0, const DragView<T>& g, int i,
-                      const ModelConsts<T>& c, Dual<T>* x) {
+template <typename T, typename G>
+MPCQ_HD void lin_item(const T* x0, const T* u0, const G& g, int i, const ModelConsts<T>& c,
+                      Dual<T>* x) {
   Dual<T> u[NU];
   for (int j = 0; j < NX; ++j) x[j] = {x0[j], T(j == i ? 1 : 0)};
   for (int a = 0; a < NU; ++a) u[a] = {u0[a], T(NX + a == i ? 1 : 0)};

@@ -26,28 +26,33 @@
 //
 // Inputs (contiguous f32): J (B, N, 17, 13), c (B, N, 13), dx0 (B, 13),
 // qlin (B, N, 13), rlin (B, N, 4), plin (B, 13), lb, ub (B, N, 4); weights
-// q (13), pt (13), rd (4).  Outputs: du (B, N, 4), dX (B, N+1, 13).
-//
-// Design: one block of one warp per scenario.  Shared memory holds K
-// (N x 4 x 13), kff, du, ddu (the barrier diagonal until the forward pass
-// overwrites it), rhat, sl, su, zl, zu, lb, ub (N x 4 each), dX ((N+1) x 13)
-// and the stage temporaries P, p, A^T P, B^T P, A^T P A, G, S: 105 N + 696
-// floats, 19.6 KB at N = 40, 35.2 KB at N = 80, 67.9 KB at N = 160 (an
-// H100 block's 232,448 bytes last to N = 546).  J (221 N floats: 35 KB at
-// N = 40, 141 KB at N = 160) is read from global memory (L2) three times
-// per iteration: rollout, backward sweep, forward pass.  Staging J in shared
-// memory too was measured on an H100 80GB HBM3 at 700 W, B=65536, N=40:
-// 443 ms staged (55 KB per block, 4 blocks per SM) against 242 ms from
-// global memory (19.6 KB, 11 blocks per SM) — the extra resident warps hide
-// more latency than the 36 re-reads of J cost — so J is not staged.
-// Nothing is reduced across blocks, so a NaN in one scenario leaves every
-// other scenario bitwise unchanged.
+// q (13), pt (13), rd (4).  Outputs: du (B, N, 4), dX (B, N+1, 13).  Scratch
+// in device memory, allocated by the caller: [K_k | kff_k] (B, N, 56).
 //
 // What bounds it on the H100: the backward sweep is serial in N; each
-// stage's 13x13x13 products (about 6,700 FMAs, each with two shared-memory
-// operands) are spread over 32 lanes with four warp syncs per stage, so a
-// scenario runs at the latency of its warp and the SM at its shared-memory
-// bandwidth.  wgmma, TMA and several scenarios per warp are later work.
+// stage's 13x13x13 products (about 6,700 FMAs) are spread over one warp's 32
+// lanes with four syncs a stage, so a scenario runs at the latency of its
+// warp, and the SM's throughput at the number of warps that hide it.  J
+// (221 floats a stage) is read three times an iteration (rollout, sweep,
+// forward pass): 83 GB at B=65536, N=40, 12 iterations, ~25 ms of HBM time.
+//
+// Design: one block of one warp per scenario, and a shared workspace cut to
+// what a stage needs, so that more warps reside (24 at N=40 where the
+// register file allows ~25; 11 with 19.6 KB a block before): du, the slacks,
+// the duals and ddu (N x 4 each), P and A^T P in two 13x13 buffers that
+// swap roles each stage (A^T P A is formed where P was; the new P where
+// A^T P was), the stage's small products and [K_k | kff_k], and two slots
+// that stream each stage's J (and, in the forward pass, its [K_k | kff_k])
+// from device memory by cp.async one stage ahead, so the chains read J from
+// shared memory: 24 N + 1128 floats, 8,352 B at N = 40, and 80 registers a
+// lane (the launch bound asks for 24 blocks an SM).  K and kff go to the
+// scratch when the sweep forms them and come back through the stream in the
+// forward pass; the rollout's dX goes to the dX output (written last by the
+// final rollout); dbar_k and rhat_k are formed in the sweep where they are
+// used; lb, ub, rlin, qlin are read from device memory.  Every element's
+// arithmetic is the one-warp, J-from-global design's, in the same order.
+// Nothing is reduced across blocks, so a NaN in one scenario leaves every
+// other scenario bitwise unchanged.
 
 #include "common.cuh"
 
@@ -55,8 +60,17 @@ namespace mpcq {
 namespace ric {
 
 constexpr int NX = 13, NU = 4, NT = 17, NXX = NX * NX;
-constexpr int kPerStage = NU * NX + 10 * NU + NX;  // K, 10 vectors of nu, dX
-constexpr int kFixed = NX + 2 * NXX + NX + NU * NX + NXX + NU * NU + NU * NX + NU + NX + 2 * NX;
+constexpr int J_REC = NT * NX;        // one stage of J
+constexpr int K_REC = NU * NX + NU;   // one stage of [K | kff]
+constexpr int REC = J_REC + K_REC;    // one stream slot
+constexpr int kPerStage = 6 * NU;     // du, sl, su, zl, zu, ddu
+// Resident blocks an SM asked of the compiler: 24 warps hold 80 registers a
+// lane, as many as the workspace allows at N = 40.
+constexpr int MIN_BLOCKS = 24;
+// P and A^T P, B^T P, G, S, rhs2, dbar, A^T p, p, two 13-vectors of the
+// recurrences, [K_k | kff_k], two stream slots
+constexpr int kFixed =
+    2 * NXX + NU * NX + NU * NU + NU * NX + 2 * NU + 2 * NX + 2 * NX + K_REC + 2 * REC;
 
 template <typename T> struct Weights { T q[NX], pt[NX], rd[NU]; };
 
@@ -67,31 +81,57 @@ template <typename T> Weights<T> weights_from(const T* w) {
   return out;
 }
 
-// Workspace of one scenario, in elements of T.
+// Shared workspace and device scratch of one scenario, in elements of T.
 MPCQ_HD int64_t ws_size(int N) { return int64_t(N) * kPerStage + kFixed; }
+MPCQ_HD int64_t scratch_size(int N) { return int64_t(N) * K_REC; }
 
-// dX <- dx0, dX_{k+1} = c_k + A_k dX_k + B_k du_k (and a copy to `out`).
-template <typename T, typename Team>
-MPCQ_HD void rollout(const Team& tm, int N, const T* J, const T* c, const T* dx0,
-                     const T* du, T* dX, T* out) {
-  const int ln = tm.lane, NL = Team::size;
-  for (int r = ln; r < NX; r += NL) {
-    dX[r] = dx0[r];
-    if (out) out[r] = dx0[r];
+// Stage records streamed from device memory through two shared slots by
+// cp.async (condense.cuh's StreamedJ, in either direction): record k is J_k,
+// followed by the scratch's [K_k | kff_k] when Ks is set.
+template <typename T> struct Stream {
+  const T* J;
+  const T* Ks;
+  T* buf;
+  // Starts record k's copy into slot k % 2 (one commit group).
+  template <typename Team> MPCQ_HD void start(const Team& tm, int k) const {
+    T* dst = buf + (k & 1) * REC;
+    tm.copy_async_part(dst, J + k * J_REC, J_REC);
+    if (Ks) tm.copy_async_part(dst + J_REC, Ks + k * K_REC, K_REC);
+    tm.commit_async();
   }
-  tm.sync();
+  // Waits for record k (the only copy in flight, or none), syncs, starts
+  // record `next` (none when negative) into the other slot, whose last reads
+  // the sync has ended, and returns k's slot.
+  template <typename Team> MPCQ_HD const T* wait(const Team& tm, int k, int next) const {
+    tm.template wait_async<0>();
+    if (next >= 0) start(tm, next);
+    return buf + (k & 1) * REC;
+  }
+};
+
+// dX_0 = dx0, dX_{k+1} = c_k + A_k dX_k + B_k du_k into dX (device memory),
+// the recurrence through the two vectors xb; J streamed in `js`'s slots.
+template <typename T, typename Team>
+MPCQ_HD void rollout(const Team& tm, int N, const Stream<T>& js, const T* c, const T* dx0,
+                     const T* du, T* xb, T* dX) {
+  const int ln = tm.lane, NL = Team::size;
+  js.start(tm, 0);
+  for (int r = ln; r < NX; r += NL) {
+    xb[r] = dx0[r];
+    dX[r] = dx0[r];
+  }
   for (int k = 0; k < N; ++k) {
-    const T* Jk = J + k * NT * NX;
-    const T* x = dX + k * NX;
+    const T* Jk = js.wait(tm, k, k + 1 < N ? k + 1 : -1);
+    const T* x = xb + (k & 1) * NX;
     for (int r = ln; r < NX; r += NL) {
       T acc = c[k * NX + r];
       for (int j = 0; j < NX; ++j) acc = acc + Jk[j * NX + r] * x[j];
       for (int a = 0; a < NU; ++a) acc = acc + Jk[(NX + a) * NX + r] * du[k * NU + a];
+      xb[((k + 1) & 1) * NX + r] = acc;
       dX[(k + 1) * NX + r] = acc;
-      if (out) out[(k + 1) * NX + r] = acc;
     }
-    tm.sync();
   }
+  tm.sync();
 }
 
 // One backward stage's joint solve of G [K | kff] = [S | rhs2] for the
@@ -129,38 +169,33 @@ template <typename T, typename Team>
 MPCQ_HD void riccati_ipm_scenario(const Team& tm, int N, int iters, const Weights<T>& wt,
                                   const T* J, const T* c, const T* dx0, const T* qlin,
                                   const T* rlin, const T* plin, const T* lbg, const T* ubg,
-                                  T* ws, T* du_out, T* dX_out) {
+                                  T* ws, T* Ks, T* du_out, T* dX) {
   const int ln = tm.lane, NL = Team::size, nv = N * NU;
 
   T* w = ws;
-  T* K = w;    w += nv * NX;
-  T* kff = w;  w += nv;
   T* du = w;   w += nv;
-  T* ddu = w;  w += nv;     // dbar until the forward pass writes ddu
-  T* rhat = w; w += nv;
   T* sl = w;   w += nv;
   T* su = w;   w += nv;
   T* zl = w;   w += nv;
   T* zu = w;   w += nv;
-  T* lb = w;   w += nv;
-  T* ub = w;   w += nv;
-  T* dX = w;   w += (N + 1) * NX;
-  T* P = w;    w += NXX;
-  T* pv = w;   w += NX;
-  T* Wt = w;   w += NXX;    // A^T P
+  T* ddu = w;  w += nv;
+  T* Pa = w;   w += NXX;      // P; then A^T P A
+  T* Pb = w;   w += NXX;      // A^T P; then the next stage's P
   T* Vt = w;   w += NU * NX;  // B^T P
-  T* Tm = w;   w += NXX;    // A^T P A
   T* G = w;    w += NU * NU;
   T* S = w;    w += NU * NX;  // B^T P A
   T* rhs2 = w; w += NU;
-  T* Ap = w;   w += NX;     // A^T p
-  T* ddx = w;
+  T* dbar = w; w += NU;
+  T* Ap = w;   w += NX;       // A^T p
+  T* pv = w;   w += NX;
+  T* xb = w;   w += 2 * NX;   // the rollout's dX_k / the forward pass's ddx_k
+  T* Kc = w;   w += K_REC;    // [K_k | kff_k] of the current stage
+  T* buf = w;                 // two stream slots
+  const Stream<T> js{J, nullptr, buf}, jks{J, Ks, buf};
 
   // ---- cold start ----
   for (int i = ln; i < nv; i += NL) {
     T l = lbg[i], u = ubg[i], d = T(0.5) * (l + u);
-    lb[i] = l;
-    ub[i] = u;
     du[i] = d;
     zl[i] = T(1);
     zu[i] = T(1);
@@ -177,36 +212,32 @@ MPCQ_HD void riccati_ipm_scenario(const Team& tm, int N, int iters, const Weight
     }
     const T mu = T(0.1) * ((tm.sum(pl) + tm.sum(pu)) / T(2 * nv));
 
-    rollout(tm, N, J, c, dx0, du, dX, (T*)nullptr);
+    rollout(tm, N, js, c, dx0, du, xb, dX);
 
-    for (int i = ln; i < nv; i += NL) {
-      T s1 = sl[i], s2 = su[i], y1 = zl[i], y2 = zu[i];
-      ddu[i] = y1 / s1 + y2 / s2;
-      rhat[i] = wt.rd[i % NU] * du[i] + rlin[i] - y1 + y2 - (mu - s1 * y1) / s1 +
-                (mu - s2 * y2) / s2;
-    }
-    for (int e = ln; e < NXX; e += NL) P[e] = e / NX == e % NX ? wt.pt[e / NX] : T(0);
+    for (int e = ln; e < NXX; e += NL) Pa[e] = e / NX == e % NX ? wt.pt[e / NX] : T(0);
     for (int r = ln; r < NX; r += NL) pv[r] = wt.pt[r] * dX[N * NX + r] + plin[r];
-    tm.sync();
 
-    // ---- backward Riccati sweep ----
+    // ---- backward Riccati sweep; J_{N-1} is still in its slot ----
     for (int k = N - 1; k >= 0; --k) {
-      const T* Jk = J + k * NT * NX;
+      const T* Jk = js.wait(tm, k, k - 1);
       const T* Bk = Jk + NXX;                 // B^T: Bk[a * NX + j] = B_k[j][a]
       for (int e = ln; e < NXX + NU * NX + NU + NX; e += NL) {
         if (e < NXX) {                        // Wt[c][i] = sum_j A[j][c] P[j][i]
           int cc = e / NX, i = e % NX;
-          T acc = Jk[cc * NX] * P[i];
-          for (int j = 1; j < NX; ++j) acc = acc + Jk[cc * NX + j] * P[j * NX + i];
-          Wt[e] = acc;
+          T acc = Jk[cc * NX] * Pa[i];
+          for (int j = 1; j < NX; ++j) acc = acc + Jk[cc * NX + j] * Pa[j * NX + i];
+          Pb[e] = acc;
         } else if (e < NXX + NU * NX) {       // Vt[a][i] = sum_j B[j][a] P[j][i]
           int e2 = e - NXX, a = e2 / NX, i = e2 % NX;
-          T acc = Bk[a * NX] * P[i];
-          for (int j = 1; j < NX; ++j) acc = acc + Bk[a * NX + j] * P[j * NX + i];
+          T acc = Bk[a * NX] * Pa[i];
+          for (int j = 1; j < NX; ++j) acc = acc + Bk[a * NX + j] * Pa[j * NX + i];
           Vt[e2] = acc;
-        } else if (e < NXX + NU * NX + NU) {  // rhs2 = rhat_k + B^T p
-          int a = e - NXX - NU * NX;
-          T acc = rhat[k * NU + a];
+        } else if (e < NXX + NU * NX + NU) {  // dbar_k; rhs2 = rhat_k + B^T p
+          int a = e - NXX - NU * NX, i = k * NU + a;
+          T s1 = sl[i], s2 = su[i], y1 = zl[i], y2 = zu[i];
+          dbar[a] = y1 / s1 + y2 / s2;
+          T acc = wt.rd[a] * du[i] + rlin[i] - y1 + y2 - (mu - s1 * y1) / s1 +
+                  (mu - s2 * y2) / s2;
           for (int j = 0; j < NX; ++j) acc = acc + Bk[a * NX + j] * pv[j];
           rhs2[a] = acc;
         } else {                              // A^T p
@@ -217,6 +248,8 @@ MPCQ_HD void riccati_ipm_scenario(const Team& tm, int N, int iters, const Weight
         }
       }
       tm.sync();
+      const T* Wt = Pb;
+      T* Tm = Pa;                             // P is dead: A^T P A takes its place
       for (int e = ln; e < NU * NU + NU * NX + NXX; e += NL) {
         if (e < NU * NU) {                    // G = B^T (B^T P)^T
           int a = e / NU, b = e % NU;
@@ -238,16 +271,17 @@ MPCQ_HD void riccati_ipm_scenario(const Team& tm, int N, int iters, const Weight
       tm.sync();
       for (int m = ln; m <= NX; m += NL) {
         T z[NU];
-        solve_column(G, S, rhs2, wt.rd, ddu + k * NU, m, z);
+        solve_column(G, S, rhs2, wt.rd, dbar, m, z);
         for (int a = 0; a < NU; ++a) {
-          if (m < NX) K[(k * NU + a) * NX + m] = z[a];
-          else kff[k * NU + a] = z[a];
+          const int o = m < NX ? a * NX + m : NU * NX + a;
+          Kc[o] = z[a];
+          Ks[k * K_REC + o] = z[a];
         }
       }
       tm.sync();
-      const T* Kk = K + k * NU * NX;
+      const T* Kk = Kc;
       for (int e = ln; e < NXX + NX; e += NL) {
-        if (e < NXX) {                        // P = diag(q) + sym(Tm) - sym(S^T K)
+        if (e < NXX) {                        // P = diag(q) + sym(Tm) - sym(S^T K), where A^T P was
           int cc = e / NX, c2 = e % NX;
           T u12 = S[cc] * Kk[c2], u21 = S[c2] * Kk[cc];
           for (int a = 1; a < NU; ++a) {
@@ -255,7 +289,7 @@ MPCQ_HD void riccati_ipm_scenario(const Team& tm, int N, int iters, const Weight
             u21 = u21 + S[a * NX + c2] * Kk[a * NX + cc];
           }
           T diag = cc == c2 ? wt.q[cc] : T(0);
-          P[e] = (diag + T(0.5) * (Tm[cc * NX + c2] + Tm[c2 * NX + cc])) - T(0.5) * (u12 + u21);
+          Pb[e] = (diag + T(0.5) * (Tm[cc * NX + c2] + Tm[c2 * NX + cc])) - T(0.5) * (u12 + u21);
         } else {                              // p = q dX_k + qlin_k + A^T p - K^T rhs2
           int r = e - NXX;
           T acc = wt.q[r] * dX[k * NX + r] + qlin[k * NX + r] + Ap[r];
@@ -263,20 +297,23 @@ MPCQ_HD void riccati_ipm_scenario(const Team& tm, int N, int iters, const Weight
           pv[r] = acc;
         }
       }
-      tm.sync();
+      T* t = Pa;                              // the next stage's wait syncs
+      Pa = Pb;
+      Pb = t;
     }
-
-    // ---- forward Newton pass, ddx_0 = 0, no defects ----
-    for (int r = ln; r < NX; r += NL) ddx[r] = T(0);
     tm.sync();
-    int cur = 0;
+
+    // ---- forward Newton pass, ddx_0 = 0, no defects; J and [K | kff] streamed ----
+    jks.start(tm, 0);
+    for (int r = ln; r < NX; r += NL) xb[r] = T(0);
     for (int k = 0; k < N; ++k) {
-      const T* Jk = J + k * NT * NX;
-      const T* Kk = K + k * NU * NX;
-      const T* x = ddx + cur * NX;
+      const T* Jk = jks.wait(tm, k, k + 1 < N ? k + 1 : -1);
+      const T* Kk = Jk + J_REC;
+      const T* kff = Kk + NU * NX;
+      const T* x = xb + (k & 1) * NX;
       T d[NU];
       for (int a = 0; a < NU; ++a) {          // every lane, alike
-        T acc = -kff[k * NU + a];
+        T acc = -kff[a];
         for (int j = 0; j < NX; ++j) acc = acc - Kk[a * NX + j] * x[j];
         d[a] = acc;
       }
@@ -284,13 +321,12 @@ MPCQ_HD void riccati_ipm_scenario(const Team& tm, int N, int iters, const Weight
         T acc = Jk[r] * x[0];
         for (int j = 1; j < NX; ++j) acc = acc + Jk[j * NX + r] * x[j];
         for (int a = 0; a < NU; ++a) acc = acc + Jk[(NX + a) * NX + r] * d[a];
-        ddx[(1 - cur) * NX + r] = acc;
+        xb[((k + 1) & 1) * NX + r] = acc;
       }
       for (int a = 0; a < NU; ++a)
         if (a % NL == ln) ddu[k * NU + a] = d[a];
-      tm.sync();
-      cur = 1 - cur;
     }
+    tm.sync();
 
     // ---- dual steps, fraction-to-the-boundary, update ----
     T pmin = T(INFINITY);
@@ -306,7 +342,7 @@ MPCQ_HD void riccati_ipm_scenario(const Team& tm, int N, int iters, const Weight
       T s1 = sl[i], s2 = su[i], y1 = zl[i], y2 = zu[i], d = ddu[i];
       T dzl = (mu - s1 * y1 - y1 * d) / s1;
       T dzu = (mu - s2 * y2 + y2 * d) / s2;
-      T l = lb[i], u = ub[i];
+      T l = lbg[i], u = ubg[i];
       T v = du[i] + alpha * d;
       T eps = T(1e-10) * floor_at(u - l, T(1));
       du[i] = v;
@@ -319,32 +355,36 @@ MPCQ_HD void riccati_ipm_scenario(const Team& tm, int N, int iters, const Weight
   }
 
   for (int i = ln; i < nv; i += NL) {
-    T v = clip(du[i], lb[i], ub[i]);
+    T v = clip(du[i], lbg[i], ubg[i]);
     du[i] = v;
     du_out[i] = v;
   }
   tm.sync();
-  rollout(tm, N, J, c, dx0, du, dX, dX_out);
+  rollout(tm, N, js, c, dx0, du, xb, dX);
 }
 
 }  // namespace ric
 }  // namespace mpcq
 
-// Dynamic shared memory of one block of the card's (f32) kernel, in bytes.
+// Dynamic shared memory of one block of the card's (f32) kernel, and the
+// device scratch of one scenario, in bytes.
 extern "C" int64_t mpcq_riccati_ws_bytes(int N) {
   return mpcq::ric::ws_size(N) * int64_t(sizeof(float));
+}
+extern "C" int64_t mpcq_riccati_scratch_bytes(int N) {
+  return mpcq::ric::scratch_size(N) * int64_t(sizeof(float));
 }
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(32, mpcq::ric::MIN_BLOCKS)
 mpcq_riccati_kernel(const float* __restrict__ J, const float* __restrict__ c,
                     const float* __restrict__ dx0, const float* __restrict__ qlin,
                     const float* __restrict__ rlin, const float* __restrict__ plin,
                     const float* __restrict__ lb, const float* __restrict__ ub,
-                    float* __restrict__ du, float* __restrict__ dX, int N, int iters,
-                    mpcq::ric::Weights<float> wt) {
+                    float* __restrict__ du, float* __restrict__ dX, float* __restrict__ Ks,
+                    int N, int iters, mpcq::ric::Weights<float> wt) {
   using namespace mpcq::ric;
   extern __shared__ float ws[];
   const int64_t b = blockIdx.x;
@@ -352,44 +392,66 @@ mpcq_riccati_kernel(const float* __restrict__ J, const float* __restrict__ c,
   riccati_ipm_scenario<float>(
       tm, N, iters, wt, J + b * N * NT * NX, c + b * N * NX, dx0 + b * NX, qlin + b * N * NX,
       rlin + b * N * NU, plin + b * NX, lb + b * N * NU, ub + b * N * NU, ws,
-      du + b * N * NU, dX + b * (N + 1) * NX);
+      Ks + b * scratch_size(N), du + b * N * NU, dX + b * (N + 1) * NX);
 }
 
 extern "C" int mpcq_riccati_ipm(const float* J, const float* c, const float* dx0,
                                 const float* qlin, const float* rlin, const float* plin,
                                 const float* lb, const float* ub, const float* weights,
-                                float* du, float* dX, int64_t B, int N, int iters,
-                                void* stream) {
-  int smem = int(mpcq_riccati_ws_bytes(N));
-  cudaError_t err = cudaFuncSetAttribute(mpcq_riccati_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                float* du, float* dX, float* scratch, int64_t B, int N,
+                                int iters, void* stream) {
+  const size_t smem = size_t(mpcq_riccati_ws_bytes(N));
+  cudaError_t err = mpcq::allow_smem(mpcq_riccati_kernel, smem);
   if (err != cudaSuccess) return int(err);
   if (B > 0)
     mpcq_riccati_kernel<<<dim3(unsigned(B)), 32, smem, (cudaStream_t)stream>>>(
-        J, c, dx0, qlin, rlin, plin, lb, ub, du, dX, N, iters,
+        J, c, dx0, qlin, rlin, plin, lb, ub, du, dX, scratch, N, iters,
         mpcq::ric::weights_from<float>(weights));
   return int(cudaGetLastError());
+}
+
+// Resident blocks (one warp each) per SM at horizon N, from the occupancy API.
+extern "C" int mpcq_riccati_occupancy(int N) {
+  return mpcq::resident_blocks(mpcq_riccati_kernel, size_t(mpcq_riccati_ws_bytes(N)));
 }
 
 #else
 #include <vector>
 
-// Host build of the same code (f64, one serial lane), for the CPU tests.
-extern "C" int mpcq_riccati_ipm_host_f64(const double* J, const double* c, const double* dx0,
-                                         const double* qlin, const double* rlin,
-                                         const double* plin, const double* lb,
-                                         const double* ub, const double* weights, double* du,
-                                         double* dX, int64_t B, int N, int iters) {
+namespace {
+
+// Kernel C on the host: one serial lane (lanes = 1) or a 32-thread team
+// that runs the warp's lane split and syncs; scenarios one after another,
+// so one scenario's workspace and scratch serve all.
+int riccati_host(int lanes, const double* J, const double* c, const double* dx0,
+                 const double* qlin, const double* rlin, const double* plin, const double* lb,
+                 const double* ub, const double* weights, double* du, double* dX, int64_t B,
+                 int N, int iters) {
   using namespace mpcq::ric;
-  Weights<double> wt = weights_from<double>(weights);
-  std::vector<double> ws(size_t(ws_size(N)));
-  mpcq::SerialTeam tm;
-  for (int64_t b = 0; b < B; ++b)
+  const Weights<double> wt = weights_from<double>(weights);
+  std::vector<double> ws(size_t(ws_size(N))), Ks(size_t(scratch_size(N)));
+  return mpcq::run_host_team(lanes, B, [&](const auto& tm, int64_t b) {
     riccati_ipm_scenario<double>(
         tm, N, iters, wt, J + b * N * NT * NX, c + b * N * NX, dx0 + b * NX,
         qlin + b * N * NX, rlin + b * N * NU, plin + b * NX, lb + b * N * NU, ub + b * N * NU,
-        ws.data(), du + b * N * NU, dX + b * (N + 1) * NX);
-  return 0;
+        ws.data(), Ks.data(), du + b * N * NU, dX + b * (N + 1) * NX);
+  });
+}
+
+}  // namespace
+
+// Host builds of the same code (f64), for the CPU tests: one serial lane,
+// and (host32) 32 threads that run the card's lane split and syncs.
+#define MPCQ_RICCATI_ARGS                                                                    \
+  const double *J, const double *c, const double *dx0, const double *qlin,                   \
+      const double *rlin, const double *plin, const double *lb, const double *ub,            \
+      const double *weights, double *du, double *dX, int64_t B, int N, int iters
+#define MPCQ_RICCATI_PASS J, c, dx0, qlin, rlin, plin, lb, ub, weights, du, dX, B, N, iters
+extern "C" int mpcq_riccati_ipm_host_f64(MPCQ_RICCATI_ARGS) {
+  return riccati_host(1, MPCQ_RICCATI_PASS);
+}
+extern "C" int mpcq_riccati_ipm_host32_f64(MPCQ_RICCATI_ARGS) {
+  return riccati_host(32, MPCQ_RICCATI_PASS);
 }
 
 #endif

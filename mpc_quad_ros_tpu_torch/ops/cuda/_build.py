@@ -38,8 +38,9 @@ LINK_FLAGS = {"g++": ("-pthread",)}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so no pointer is cut to 32 bits)
-WS_ENTRIES = ("mpcq_sqp_ws_bytes", "mpcq_sqp_step_ws_bytes", "mpcq_condense_ws_bytes",
-              "mpcq_box_qp_ws_bytes", "mpcq_riccati_ws_bytes", "mpcq_transpose_ws_bytes")
+WS_ENTRIES = ("mpcq_lin_ws_bytes", "mpcq_sqp_ws_bytes", "mpcq_sqp_step_ws_bytes",
+              "mpcq_condense_ws_bytes", "mpcq_box_qp_ws_bytes", "mpcq_riccati_ws_bytes",
+              "mpcq_riccati_scratch_bytes", "mpcq_transpose_ws_bytes")
 DEVICE_ENTRIES = {
     "mpcq_lin": [_P] * 6 + [_I, _P, _P, _I64, _I, _P, _P],
     "mpcq_sqp_fused": [_P] * 15 + [_I64, _I, _I, _P],
@@ -47,12 +48,14 @@ DEVICE_ENTRIES = {
     "mpcq_condense": [_P] * 9 + [_I64, _I, _P],
     "mpcq_condense_ab": [_P] * 10 + [_I64, _I, _P],
     "mpcq_box_qp": [_P] * 9 + [_I64, _I, _I, _P],
-    "mpcq_riccati_ipm": [_P] * 11 + [_I64, _I, _I, _P],
+    "mpcq_riccati_ipm": [_P] * 12 + [_I64, _I, _I, _P],
     "mpcq_fma": [_P, _P, _I64, _I, _I, _I, _P],
     "mpcq_mirror": [_P, _P, _I64, _I, _I, _P],
     "mpcq_elem": [_P, _P, _I64, _I, _I, _P],
     "mpcq_sqp_occupancy": [_I, _I],
     "mpcq_box_qp_occupancy": [_I],
+    "mpcq_lin_occupancy": [_I],
+    "mpcq_riccati_occupancy": [_I],
     **{name: [_I] for name in WS_ENTRIES},
 }
 HOST_ENTRIES = {
@@ -66,6 +69,7 @@ HOST_ENTRIES = {
     "mpcq_box_qp_host_f64": [_P] * 9 + [_I64, _I, _I],
     "mpcq_box_qp_host32_f64": [_P] * 9 + [_I64, _I, _I],
     "mpcq_riccati_ipm_host_f64": [_P] * 11 + [_I64, _I, _I],
+    "mpcq_riccati_ipm_host32_f64": [_P] * 11 + [_I64, _I, _I],
     "mpcq_fma_host_f64": [_P, _P, _I64, _I, _I, _I],
     "mpcq_mirror_host_f64": [_P, _P, _I64, _I, _I],
     "mpcq_elem_host_f64": [_P, _P, _I64, _I, _I],

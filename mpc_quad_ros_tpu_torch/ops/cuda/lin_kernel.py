@@ -1,9 +1,10 @@
 """Kernel A: RK4 shooting-map linearisation with the folded-RGP drag.
 
 Replaces ``mpc_quad_ros_tpu/ops/pallas/lin_kernel.py::_lin_kernel``; the CUDA
-source is ``csrc/lin_kernel.cu`` (one thread per (column, tangent), forward
-dual numbers through a model template; bounded by registers and FLOPs per
-thread — see the source's header).
+source is ``csrc/lin_kernel.cu`` (a block of 32 columns: tangent 0 of each
+column records the drag's moments, the other 16 tangents read them back, J
+leaves shared memory as 16-byte stores; bounded by operations — see the
+source's header).
 
 For every (scenario b, stage k): xp[b, k] = RK4(f, X[b, k], U[b, k], dt) and
 J[b, k, i] = d xp[b, k] / d (x, u)_i, i < 17, scenario-major:

@@ -3,8 +3,9 @@ long-horizon OCP, fed with kernel A's J.
 
 Replaces ``mpc_quad_ros_tpu/ops/pallas/riccati_kernel.py::
 _riccati_ipm_kernel``; the CUDA source is ``csrc/riccati_ipm.cu`` (one warp
-per scenario, J read from global memory; bounded by the serial backward
-sweep — see the source's header).
+per scenario, J streamed through shared memory a stage ahead, K and kff in a
+device scratch; bounded by the serial backward sweep — see the source's
+header).
 
 Inputs: J (B, N, 17, 13) (row j of stage k = column j of [A_k | B_k]), the
 defects c (B, N, 13), dx0 (B, 13), qlin (B, N, 13), rlin (B, N, 4),
@@ -142,9 +143,11 @@ def _launch(J, c, dx0, qlin, rlin, plin, lb, ub, q, p_term, rdiag, iters):
     weights = _build.host_floats(list(q) + list(p_term) + list(rdiag))
     du = torch.empty((B, N, NU), dtype=J.dtype, device=J.device)
     dX = torch.empty((B, N + 1, NX), dtype=J.dtype, device=J.device)
+    scratch = torch.empty((B, lib.mpcq_riccati_scratch_bytes(N) // 4), dtype=J.dtype,
+                          device=J.device)
     rc = lib.mpcq_riccati_ipm(*(t.data_ptr() for t in tensors.values()), weights.data_ptr(),
-                              du.data_ptr(), dX.data_ptr(), B, N, int(iters),
-                              torch.cuda.current_stream(J.device).cuda_stream)
+                              du.data_ptr(), dX.data_ptr(), scratch.data_ptr(), B, N,
+                              int(iters), torch.cuda.current_stream(J.device).cuda_stream)
     riccati_ipm_from_J.launches += 1
     _build.check_status("riccati_kernel", rc)
     return du, dX

@@ -76,3 +76,9 @@ def test_riccati_profile_runs_on_cpu():
     assert set(row["per_iters_seconds"]) == {"2", "6", "12"}
     assert math.isfinite(row["sweep_slope_s"]) and math.isfinite(row["intercept_s"])
     assert row["port_flops_per_iter"] == bounds.riccati_work(1, 5, 1)["flops"]
+
+
+def test_riccati_breakdown_runs_on_cpu():
+    out = probe_hybrid.riccati_breakdown(B=2, N=5, device="cpu", reps=1)
+    for key in ("lin_kernel_s", "glue_s", "riccati_kernel_s", "riccati_finish_s", "step_s"):
+        assert math.isfinite(out[key]) and out[key] > 0, key

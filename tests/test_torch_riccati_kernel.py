@@ -131,10 +131,11 @@ def test_fused_n_max_is_kernel_b_shared_memory_ceiling(host_lib):
     assert ws(sqp.FUSED_N_MAX) <= H100_SMEM_PER_BLOCK
     # the shared memory is no longer what stops kernel B at FUSED_N_MAX
     assert ws(53) <= H100_SMEM_PER_BLOCK < ws(54)
-    # kernel C (J in global memory) launches far past it: 105 N + 696 floats
+    # kernel C (J streamed a stage at a time, K in a device scratch) launches
+    # far past it: 24 N + 1128 floats
     ric = host_lib.mpcq_riccati_ws_bytes
-    assert ric(40) == 4 * (105 * 40 + 696) == 19_584
-    assert ric(546) <= H100_SMEM_PER_BLOCK < ric(547)
+    assert ric(40) == 4 * (24 * 40 + 1128) == 8_352
+    assert ric(2374) <= H100_SMEM_PER_BLOCK < ric(2375)
 
 
 def test_cuda_kernel_matches_f64_plain():
