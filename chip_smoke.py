@@ -8,10 +8,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    versions; no CUDA device -> exit 1 (there is no CPU fallback);
 2. build: nvcc compiles ``mpc_quad_ros_tpu_torch/csrc/*.cu`` (timed); then
    one line per kernel B, E and F at N = 10 and 40 (nz = 40 and 160), kernel
-   A at N = 10 and kernel C at N = 10 and 40: shared memory per block,
-   registers and spills (the build log's ``-Xptxas -v``), resident blocks
-   and warps per SM (the occupancy API); kernel B must keep at least 12
-   warps resident per SM at N = 10, kernel C more than 11 at N = 40;
+   A at N = 10 and kernels C, D and J at N = 10 and 40: shared memory per
+   block, registers and spills (the build log's ``-Xptxas -v``), resident
+   blocks and warps per SM (the occupancy API); kernel B must keep at least
+   12 warps resident per SM at N = 10, kernel C more than 11 at N = 40,
+   kernel D more than 11 at N = 10;
 3. kernel A (RK4 linearisation) against its plain PyTorch version, in f32
    and against the f64 plain version, at the main-path shapes, and NaN
    isolation between scenarios;
@@ -25,9 +26,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    small-batch step's) at B=1 and B=127 against its plain versions, NaN
    isolation and bitwise against kernel D; then kernels B and E
    warm-started with the duals of a previous solve against the f64 plain
-   warm IPM; then kernel B at N=40 (B=512; a 1 s horizon at 25 ms nodes,
-   hover with velocities U(-0.5, 0.5) m/s and y_ref = x0, where the f32 plain
-   version loses no scenario) against its f32 and f64 plain versions;
+   warm IPM; then kernels B and D at N=40 (B=512; a 1 s horizon at 25 ms
+   nodes, hover with velocities U(-0.5, 0.5) m/s and y_ref = x0, where the
+   f32 plain version loses no scenario) against their f32 and f64 plain
+   versions;
 7. the card's solves against the f64 solves on the CPU, N=10 (each
    pipeline) and N=40, and the three pipelines against each other at
    B=65536 (U bitwise equal);
@@ -175,6 +177,9 @@ RESIDENT_WARPS_MIN = 12
 # Kernel C's resident warps per SM at N = 40 must pass the 11 that its
 # workspace allowed with K and kff in shared memory (19,584 B a block).
 RICCATI_WARPS_BEFORE = 11
+# Kernel D's resident warps per SM at N = 10 must pass the ~11 that J staged
+# whole and H as a full nz x (nz + 1) matrix allowed (19,824 B a block).
+CONDENSE_WARPS_BEFORE = 11
 T0 = time.perf_counter()
 
 
@@ -281,7 +286,8 @@ def phase_residency(regs: dict) -> None:
     registers and spills of the instantiation that runs there (R register
     slots a lane, nz <= 32 R), resident one-warp blocks per SM; kernel A
     (blocks of 128 threads) at N = 10, kernel C (one warp a block) at N = 10
-    and 40."""
+    and 40; kernels D (one warp a block) and J (one block of
+    ``mpcq_condense_ab_threads()`` a scenario) at N = 10 and 40."""
     lib = _build.load_library()
     rows = {}
     blocks = lib.mpcq_lin_occupancy(10)
@@ -322,6 +328,22 @@ def phase_residency(regs: dict) -> None:
     b10 = rows[("sqp_fused_kernel", 10)]["resident_warps_per_sm"]
     check(b10 >= RESIDENT_WARPS_MIN,
           f"residency: kernel B keeps {b10} warps per SM at N=10, fewer than {RESIDENT_WARPS_MIN}")
+    nt = lib.mpcq_condense_ab_threads()
+    for N in (10, N_LONG):
+        for name, key, threads, blocks in (
+                ("condense_kernel", "condense", 32, lib.mpcq_condense_occupancy(N)),
+                ("condense_ab_kernel", "condense_ab", nt, lib.mpcq_condense_ab_occupancy(N))):
+            row = {"kernel": name, "instantiation": key, "N": N, "threads_per_block": threads,
+                   "smem_bytes": lib.mpcq_condense_ws_bytes(N), **regs.get(key, {}),
+                   "resident_blocks_per_sm": blocks,
+                   "resident_warps_per_sm": blocks * threads // 32}
+            rows[(name, N)] = row
+            emit("residency", **row)
+            check(blocks > 0, f"residency: {name} at N={N} does not launch: {row}")
+    d10 = rows[("condense_kernel", 10)]["resident_warps_per_sm"]
+    check(d10 > CONDENSE_WARPS_BEFORE,
+          f"residency: kernel D keeps {d10} warps per SM at N=10, not more than "
+          f"{CONDENSE_WARPS_BEFORE}")
 
 
 def phase_kernel_a(device) -> dict:
@@ -503,11 +525,28 @@ def phase_kernel_d(device) -> dict:
     return {"max_abs_err": err["max_abs_err"], "ms": ms, "plain_ms": plain_ms, **work}
 
 
+def phase_kernel_d_long(device) -> None:
+    """Kernel D at N=40 (its largest workspace, 70,724 B a block) against its
+    f32 and f64 plain versions, on kernel B's N=40 inputs
+    (``hover_long_inputs``, B=512)."""
+    B = 512
+    solver, carry, x0, y_ref, aug = hover_long_inputs(B, device)
+    args = step_args(solver, carry, x0, y_ref, aug)[:4]
+    out, err = condense_stats(condense_kernel.condense_cost_from_J,
+                              condense_kernel.condense_cost_from_J_plain, args,
+                              solver.cfg.weight_tuples(), poison_first)
+    emit("kernel_d_n40", B=B, N=N_LONG, **err,
+         smem_bytes=_build.load_library().mpcq_condense_ws_bytes(N_LONG), tol_rel=COND_REL_TOL)
+    check(all(torch.isfinite(a).all() for a in out), "kernel D N=40: non-finite output")
+    check_condense("kernel D N=40", err)
+
+
 def phase_kernel_j(device) -> dict:
     """Condensing fed A and B, the small-batch step's, at the latency path's
-    B=1 (timed there) and at B = SMALL_BATCH - 1 with NaN isolation: against
-    its f32 and f64 plain versions, and bitwise against kernel D on the J
-    that A and B came from (the same code once staged)."""
+    B=1 (timed there: per call through the wrapper, CUDA events, and the
+    kernel's device time from the profiler) and at B = SMALL_BATCH - 1 with
+    NaN isolation: against its f32 and f64 plain versions, and bitwise
+    against kernel D on the J that A and B came from (the same stage loop)."""
     rows, res = {}, None
     for B in (1, sqp.SMALL_BATCH - 1):
         solver, carry, x0, y_ref, aug = kernel_inputs(B, device)
@@ -524,14 +563,20 @@ def phase_kernel_j(device) -> dict:
         check_condense(f"kernel J, B={B}", err)
         check(err["bitwise_kernel_d"], f"kernel J, B={B}: differs from kernel D on the same J")
         if B == 1:
-            ms = timed_ms(lambda: condense_kernel.condense_cost_from_AB(*args, *w), reps=50)
+            run = lambda: condense_kernel.condense_cost_from_AB(*args, *w)
+            ms = timed_ms(run, reps=50)
+            # the kernel alone, without the host's launch path
+            device_ms = phases.kernel_device_ms(run, "condense_ab", reps=200)
+            check(device_ms is not None, "kernel J: the profiler records no launch")
             plain_ms = timed_ms(lambda: condense_kernel.condense_cost_from_AB_plain(*args, *w),
                                 reps=5)
             res = {"max_abs_err": err["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
                    **bounds.condense_work(1, cfg.n_nodes)}
     emit("kernel_j", **{f"B{B}_{k}": v for B, r in rows.items() for k, v in r.items()},
-         ms_at_B1=res["ms"], plain_ms_at_B1=res["plain_ms"], bound_ms_at_B1=res["bound_ms"],
-         tol_rel=COND_REL_TOL)
+         ms_at_B1=res["ms"], device_ms_at_B1=device_ms, plain_ms_at_B1=res["plain_ms"],
+         bound_ms_at_B1=res["bound_ms"],
+         threads_per_block=_build.load_library().mpcq_condense_ab_threads(), tol_rel=COND_REL_TOL)
+    check(device_ms > 0, f"kernel J: device time {device_ms} ms")
     return res
 
 
@@ -1124,6 +1169,7 @@ def main() -> None:
     phase_kernel_b_warm(device)
     phase_kernel_e(device, warm_start=True)
     phase_kernel_b_long(device)
+    phase_kernel_d_long(device)
     torch.cuda.empty_cache()
     phase_slice_vs_cpu(device)
     phase_riccati_vs_cpu(device)

@@ -1,23 +1,33 @@
-"""Kernels A, B, C, E and F of this checkout against another checkout's, on
-one card, in one process, on the same inputs.
+"""Kernels A-F and J of this checkout against another checkout's, on one
+card, in one process, on the same inputs.
 
     python -m mpc_quad_ros_tpu_torch.bench.compare_build --other PATH [--B 65536]
+        [--solves split,hybrid]
 
 PATH is another checkout of this repository (an earlier commit, unpacked).
 Its ``ops/cuda/_build.py`` builds its own ``csrc/`` into its own ``build/``,
 and its C entry points ``mpcq_lin``, ``mpcq_sqp_fused``, ``mpcq_riccati_ipm``,
-``mpcq_box_qp`` and ``mpcq_sqp_step`` are called directly with this
-checkout's tensors: the solve cell's next Gauss-Newton step at B scenarios,
-N=10 (kernel A on the trajectory, kernel B fed kernel A's J, kernel E on
-kernel D's QP, kernel F on the trajectory; B, E and F cold and warm-started
-from the first solve's duals), and kernel C at N=40 on kernel A's J of the
-same cell's step at that horizon.  Kernel C's entry takes a device scratch
-where the library has ``mpcq_riccati_scratch_bytes`` (its other arguments
-are the same).  One JSON line per kernel and start: whether the two
-libraries' outputs are bitwise equal, their largest difference, and each
-library's CUDA-event time, taken in turns (other, this, this, other).  The
-launch counters of this checkout's wrappers are not touched: the calls go to
-the C entries.
+``mpcq_condense``, ``mpcq_box_qp``, ``mpcq_sqp_step`` and
+``mpcq_condense_ab`` are called directly with this checkout's tensors: the
+solve cell's next Gauss-Newton step at B scenarios, N=10 (kernel A on the
+trajectory, kernels B and D fed kernel A's J, kernel E on kernel D's QP,
+kernel F on the trajectory; B, E and F cold and warm-started from the first
+solve's duals; kernel J on the A and B blocks of the first 1 and 127
+scenarios' J), and kernel C at N=40 on kernel A's J of the same cell's step
+at that horizon.  Kernel C's entry takes a device scratch where the library
+has ``mpcq_riccati_scratch_bytes`` (its other arguments are the same).  One
+JSON line per kernel and start: whether the two libraries' outputs are
+bitwise equal, their largest difference, and each library's CUDA-event
+time, taken in turns (other, this, this, other); kernel J's rows add each
+library's device time of one launch from ``torch.profiler`` (200
+launches).  The launch counters of this checkout's wrappers are not
+touched: the calls go to the C entries.
+
+``--solves`` adds the end-to-end view: for each pipeline named, each
+checkout's own package in a process of its own (other, this, this, other)
+runs the solve cell's 20 chained warm-started solves at B scenarios, three
+times (``bench/phases.py::time_solves``), and its one-scenario latency
+through the small-batch step (``bench/headline.py::one_scenario_latency``).
 """
 
 from __future__ import annotations
@@ -26,14 +36,17 @@ import argparse
 import importlib.util
 import json
 import pathlib
+import subprocess
+import sys
 
 import torch
 
 from ..models import fold_drag
 from ..ops.cuda import _build, condense_kernel, lin_kernel
+from ..ops.cuda.condense_common import split_AB
 from ..ops.cuda.lin_kernel import model_constants
 from .operating_point import operating_point
-from .phases import card, device_seconds
+from .phases import card, device_seconds, kernel_device_ms
 
 
 def other_library(path: pathlib.Path):
@@ -63,6 +76,14 @@ def step_inputs(B: int, device) -> dict:
             "weights": _build.host_floats(list(q) + list(p) + list(rw)),
             "consts": _build.host_floats(model_constants(solver.f.params, cfg.dt)),
             "iters": cfg.qp_iters, "N": cfg.n_nodes, "f": solver.f, "dt": cfg.dt}
+
+
+def ab_inputs(step: dict, B: int) -> dict:
+    """Kernel J's arguments: the A and B blocks of the first B scenarios of
+    the step's J, and their r, dx0, ex0."""
+    J, *tail = (a[:B].contiguous() for a in step["args"][:4])
+    return {"args": [*(a.contiguous() for a in split_AB(J)), *tail],
+            "weights": step["weights"], "N": step["N"]}
 
 
 def riccati_step_inputs(B: int, device, N: int = 40) -> dict:
@@ -119,6 +140,32 @@ def run_b(lib, inp, duals):
     return out
 
 
+def _condense_out(B, N, device):
+    nz = 4 * N
+    return [torch.empty(shape, device=device)
+            for shape in ((B, nz, nz), (B, nz), (B, N + 1, 13, nz), (B, N + 1, 13))]
+
+
+def run_d(lib, inp, _duals):
+    J = inp["args"][0]
+    B, N = J.shape[:2]
+    out = _condense_out(B, N, J.device)
+    rc = lib.mpcq_condense(*_ptrs(inp["args"][:4]), inp["weights"].data_ptr(), *_ptrs(out), B, N,
+                           torch.cuda.current_stream().cuda_stream)
+    _build.check_status("compare_build kernel D", rc)
+    return out
+
+
+def run_j(lib, inp, _duals):
+    A = inp["args"][0]
+    B, N = A.shape[:2]
+    out = _condense_out(B, N, A.device)
+    rc = lib.mpcq_condense_ab(*_ptrs(inp["args"]), inp["weights"].data_ptr(), *_ptrs(out), B, N,
+                              torch.cuda.current_stream().cuda_stream)
+    _build.check_status("compare_build kernel J", rc)
+    return out
+
+
 def run_e(lib, inp, duals):
     H, g, lb, ub = inp["box"]
     B, nz = g.shape
@@ -143,25 +190,32 @@ def run_f(lib, inp, duals):
     return out
 
 
-# kernel -> (its run, whether it takes warm duals, its inputs' horizon)
-KERNELS = {"A": (run_a, False, 10), "B": (run_b, True, 10), "C": (run_c, False, 40),
-           "E": (run_e, True, 10), "F": (run_f, True, 10)}
+# (kernel, its run, whether it takes warm duals, its inputs: the N=10 step,
+# kernel J's blocks of its first 1 or 127 scenarios, or the N=40 step)
+KERNELS = (("A", run_a, False, "step"), ("B", run_b, True, "step"),
+           ("C", run_c, False, "riccati"), ("D", run_d, False, "step"),
+           ("E", run_e, True, "step"), ("F", run_f, True, "step"),
+           ("J", run_j, False, "ab1"), ("J", run_j, False, "ab127"))
+# profiler launches per library and kernel J row
+J_PROFILE_REPS = 200
 
 
 def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
     dev = torch.device("cuda", 0)
     libs = {"other": other_library(other), "this": _build.load_library()}
-    inputs = {10: step_inputs(B, dev)}
+    inputs = {"step": step_inputs(B, dev)}
+    inputs.update({f"ab{n}": ab_inputs(inputs["step"], n) for n in (1, 127)})
     rows = []
-    for name, (run, warm, N) in KERNELS.items():
-        if N not in inputs:
-            inputs[N] = riccati_step_inputs(B, dev, N)
-        inp = inputs[N]
+    for name, run, warm, key in KERNELS:
+        if key not in inputs:
+            inputs[key] = riccati_step_inputs(B, dev)
+        inp = inputs[key]
         starts = (("cold", (None, None)),) + ((("warm", inp["duals"]),) if warm else ())
         for start, duals in starts:
             outs = {k: run(lib, inp, duals) for k, lib in libs.items()}
             torch.cuda.synchronize()
-            row = {"kernel": name, "start": start if warm else "-", "B": B, "N": inp["N"],
+            row = {"kernel": name, "start": start if warm else "-",
+                   "B": inp["args"][0].shape[0], "N": inp["N"],
                    "bitwise": all(torch.equal(a, b) for a, b in zip(outs["this"], outs["other"])),
                    "max_abs_diff": max((a - b).abs().max().item()
                                        for a, b in zip(outs["this"], outs["other"])),
@@ -171,20 +225,58 @@ def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
             for k in ("other", "this", "this", "other"):
                 ms[k].append(device_seconds(lambda: run(libs[k], inp, duals), reps, dev) * 1e3)
             row.update({f"{k}_ms": v for k, v in ms.items()})
+            if name == "J":
+                row.update({f"{k}_device_ms": kernel_device_ms(
+                    lambda: run(libs[k], inp, duals), "condense_ab", J_PROFILE_REPS)
+                    for k in ("other", "this")})
             rows.append(row)
     return rows
+
+
+# One checkout's solves, run from its root with its own package: solves/s of
+# the solve cell's chained solves through a pipeline, and the one-scenario
+# latency (p50, largest ms).  Only entry points both checkouts have.
+SOLVES = """
+import json, torch
+from mpc_quad_ros_tpu_torch.bench.headline import one_scenario_latency
+from mpc_quad_ros_tpu_torch.bench.operating_point import operating_point
+from mpc_quad_ros_tpu_torch.bench.phases import time_solves
+dev = torch.device("cuda", 0)
+solver, carry, x0, y_ref, rgp = operating_point({B}, dev, pipeline="{pipeline}")
+times, _ = time_solves(solver, carry, x0, y_ref, rgp, 20, dev, 3)
+p50, top = one_scenario_latency(solver, carry, x0, y_ref, rgp, dev)
+print(json.dumps([{B} * len(times) / sum(times), p50, top]))
+"""
+
+
+def solve_rates(other: pathlib.Path, pipeline: str, B: int) -> dict:
+    """Each checkout's solves/s and one-scenario latency through `pipeline`,
+    in turns (other, this, this, other), one process a run."""
+    roots = {"other": pathlib.Path(other).resolve(),
+             "this": pathlib.Path(__file__).resolve().parents[2]}
+    row = {"pipeline": pipeline, "B": B, "chained_solves": 20, "runs": 3}
+    for k in ("other", "this", "this", "other"):
+        out = subprocess.run([sys.executable, "-c", SOLVES.format(B=B, pipeline=pipeline)],
+                             cwd=roots[k], capture_output=True, text=True, check=True)
+        rate, p50, top = json.loads(out.stdout.strip().splitlines()[-1])
+        for key, v in (("solves_per_s", rate), ("latency_p50_ms", p50), ("latency_max_ms", top)):
+            row.setdefault(f"{k}_{key}", []).append(v)
+    return row
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=pathlib.Path, required=True)
     ap.add_argument("--B", type=int, default=65536)
+    ap.add_argument("--solves", default="", help="pipelines to run end to end, comma-separated")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_build: needs a CUDA device")
     print(card(), flush=True)
     for row in compare(args.other, args.B):
         print(json.dumps(row), flush=True)
+    for pipeline in filter(None, args.solves.split(",")):
+        print(json.dumps(solve_rates(args.other, pipeline, args.B)), flush=True)
 
 
 if __name__ == "__main__":

@@ -94,6 +94,24 @@ def device_seconds(fn, reps: int, device, warmup: bool = True) -> float:
     return start.elapsed_time(end) / 1e3 / reps
 
 
+def kernel_device_ms(fn, name: str, reps: int = 200):
+    """Mean device milliseconds of one launch of the kernels whose name holds
+    `name`, over `reps` calls of fn() (after one untimed call), from
+    torch.profiler's CUDA activity: the kernels alone, without the host's
+    launch path.  None when the profiler records no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key]
+    launches = sum(e.count for e in hits)
+    if launches == 0:
+        return None
+    return sum(e.device_time_total for e in hits) / launches / 1e3
+
+
 def line_fit(times: dict) -> tuple[float, float]:
     """(slope, intercept) of seconds against IPM iterations."""
     its = np.asarray(sorted(times), np.float64)

@@ -2,9 +2,10 @@
 //
 // Every kernel body is a template over the scalar type T and, for the
 // per-scenario kernels, over a "team": on the card the team is one warp
-// (32 lanes, __syncwarp, shuffle reductions and broadcasts, cp.async copies);
-// on the host it is one serial lane (size 1, no-op sync, identity
-// reductions) or 32 threads behind a barrier, which run the warp's lane split
+// (32 lanes, __syncwarp, shuffle reductions and broadcasts, cp.async copies)
+// or, for kernel J, a whole block (__syncthreads, cp.async copies); on the
+// host it is one serial lane (size 1, no-op sync, identity reductions) or
+// 32 or more threads behind a barrier, which run the card team's lane split
 // and its syncs.  nvcc builds the card version; g++ builds the same source
 // (with -x c++) into a host library whose double instantiation the CPU tests
 // hold against the plain PyTorch versions.
@@ -69,8 +70,43 @@ template <int RMax, int R0 = 1, typename F> int with_slots(int nz, F&& f) {
   }
 }
 
+// Walks the row-major lower triangle {(a, c): 0 <= c <= a} by flat index
+// e = a (a + 1) / 2 + c, from a lane's first element in steps of the team:
+// the rows of a triangle's first m rows are a prefix of it, so one walk
+// serves every size, with no division.
+struct TriWalk {
+  int a = 0, c;
+  MPCQ_HD explicit TriWalk(int e) : c(e) { settle(); }
+  MPCQ_HD void settle() {
+    while (c > a) {
+      c -= a + 1;
+      ++a;
+    }
+  }
+  MPCQ_HD void advance(int step) {
+    c += step;
+    settle();
+  }
+};
+
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
+
+// cp.async, which the card's teams share: one 4-byte copy from device to
+// shared memory into the thread's open group, the commit that closes the
+// group, and the wait until at most `Pending` of the thread's latest groups
+// are in flight.
+template <typename T> __device__ __forceinline__ void cp_async4(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4, "cp.async copies 4-byte elements here");
+  const unsigned d = unsigned(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int Pending> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
 
 // One warp works on one scenario.
 struct WarpTeam {
@@ -104,21 +140,32 @@ struct WarpTeam {
   // one group of several spans.
   template <typename T>
   __device__ __forceinline__ void copy_async_part(T* dst, const T* src, int n) const {
-    static_assert(sizeof(T) == 4, "cp.async copies 4-byte elements here");
-    for (int e = lane; e < n; e += size) {
-      const unsigned d = unsigned(__cvta_generic_to_shared(dst + e));
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src + e)
-                   : "memory");
-    }
+    for (int e = lane; e < n; e += size) cp_async4(dst + e, src + e);
   }
-  __device__ __forceinline__ void commit_async() const {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
+  __device__ __forceinline__ void commit_async() const { cp_async_commit(); }
   // Waits until at most `Pending` of this lane's latest commit groups are in
   // flight, then syncs, so every lane's finished copies are visible.
   template <int Pending> __device__ __forceinline__ void wait_async() const {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+    cp_async_wait<Pending>();
     __syncwarp();
+  }
+};
+
+// A whole block of NT threads works on one scenario (kernel J): the warp's
+// cp.async groups and waits, __syncthreads for the sync.  No reductions.
+template <int NT> struct BlockTeam {
+  int lane;
+  static constexpr int size = NT;
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  // Starts one 4-byte cp.async into the lane's open group: a copy may
+  // scatter (kernel J's transposition of A and B into J's layout).
+  template <typename T> __device__ __forceinline__ void copy_elem(T* dst, const T* src) const {
+    cp_async4(dst, src);
+  }
+  __device__ __forceinline__ void commit_async() const { cp_async_commit(); }
+  template <int Pending> __device__ __forceinline__ void wait_async() const {
+    cp_async_wait<Pending>();
+    __syncthreads();
   }
 };
 
@@ -132,11 +179,39 @@ template <typename K> cudaError_t allow_smem(K kernel, size_t smem) {
                               int(cudaSharedmemCarveoutMaxShared));
 }
 
+// allow_smem up to the current device's opt-in limit, so that a launch of
+// any size the device takes needs no further attribute call.
+template <typename K> cudaError_t allow_smem_max(K kernel) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err == cudaSuccess ? allow_smem(kernel, size_t(optin)) : err;
+}
+
+// allow_smem_max once per device (devices 0-63) for the kernel whose
+// launcher keeps this: the small-batch launches make no attribute call.
+struct SmemOnce {
+  unsigned long long done = 0;
+  template <typename K> cudaError_t operator()(K kernel) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (done & bit) return cudaSuccess;
+    err = allow_smem_max(kernel);
+    if (err == cudaSuccess) done |= bit;
+    return err;
+  }
+};
+
 // Resident blocks of `threads` threads (one warp unless given) per SM of a
-// kernel at `smem`, from the occupancy API, or -1.
+// kernel at `smem`, from the occupancy API, or -1.  It leaves the kernel
+// allowed the device's opt-in limit (allow_smem_max), never less than a
+// launcher set before.
 template <typename K> int resident_blocks(K kernel, size_t smem, int threads = 32) {
   int blocks = 0;
-  if (allow_smem(kernel, smem) != cudaSuccess ||
+  if (allow_smem_max(kernel) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem) != cudaSuccess)
     return -1;
   return blocks;
@@ -158,6 +233,7 @@ struct SerialTeam {
   template <typename T> MPCQ_HD void copy_async_part(T* dst, const T* src, int n) const {
     for (int e = 0; e < n; ++e) dst[e] = src[e];
   }
+  template <typename T> MPCQ_HD void copy_elem(T* dst, const T* src) const { *dst = *src; }
   MPCQ_HD void commit_async() const {}
   template <int Pending> MPCQ_HD void wait_async() const {}
 };
@@ -174,27 +250,28 @@ template <typename Team> constexpr int host_slots = 256 / Team::size;
 
 namespace mpcq {
 
-// State the 32 threads of a ThreadTeam share: the barrier and two banks of
+// State the threads of a ThreadTeam share: the barrier and two banks of
 // exchange slots.
-struct ThreadShared {
-  static constexpr int lanes = 32;
+template <int Lanes = 32> struct ThreadShared {
+  static constexpr int lanes = Lanes;
   std::barrier<> bar{lanes};
   double slots[2][lanes];
 };
 
-// The host build's warp: 32 threads, one a lane, each running the kernel
-// body with its own lane index and registers over one shared workspace.
+// The host build's warp (Lanes = 32) or block: one thread a lane, each
+// running the kernel body with its own lane index and registers over one
+// shared workspace.
 // sync() is the barrier; a reduction or broadcast writes the lane's value to
 // a slot bank, passes the barrier and reads the bank.  The banks alternate
 // from one exchange to the next, so a bank is written again only after every
 // lane has passed the barrier of the exchange in between, that is, after
 // every lane has read it.  Every lane reads the same slots in the same order,
 // so all lanes get the same bits.
-struct ThreadTeam {
+template <int Lanes = 32> struct ThreadTeam {
   int lane;
-  ThreadShared* sh;
+  ThreadShared<Lanes>* sh;
   mutable int bank = 0;
-  static constexpr int size = ThreadShared::lanes;
+  static constexpr int size = Lanes;
   void sync() const { sh->bar.arrive_and_wait(); }
   const double* exchange(double v) const {
     double* s = sh->slots[bank];
@@ -228,24 +305,19 @@ struct ThreadTeam {
   template <typename T> void copy_async_part(T* dst, const T* src, int n) const {
     for (int e = lane; e < n; e += size) dst[e] = src[e];
   }
+  template <typename T> void copy_elem(T* dst, const T* src) const { *dst = *src; }
   void commit_async() const {}
   template <int Pending> void wait_async() const { sync(); }
 };
 
-// Runs body(team, b) for b in [0, B) with one serial lane (lanes = 1) or a
-// ThreadTeam (lanes = 32), every lane over the same scenarios in order.
-template <typename Body> int run_host_team(int lanes, int64_t B, Body body) {
-  if (lanes == 1) {
-    SerialTeam tm;
-    for (int64_t b = 0; b < B; ++b) body(tm, b);
-    return 0;
-  }
-  if (lanes != ThreadShared::lanes) return -1;
-  ThreadShared sh;
+// Runs body(team, b) for b in [0, B) with a ThreadTeam of Lanes threads,
+// every lane over the same scenarios in order.
+template <int Lanes, typename Body> int run_thread_team(int64_t B, Body body) {
+  ThreadShared<Lanes> sh;
   std::vector<std::thread> threads;
-  for (int l = 0; l < ThreadShared::lanes; ++l)
+  for (int l = 0; l < Lanes; ++l)
     threads.emplace_back([&, l] {
-      ThreadTeam tm{l, &sh};
+      ThreadTeam<Lanes> tm{l, &sh};
       for (int64_t b = 0; b < B; ++b) {
         body(tm, b);
         tm.sync();  // the workspace is reused by the next scenario
@@ -253,6 +325,18 @@ template <typename Body> int run_host_team(int lanes, int64_t B, Body body) {
     });
   for (auto& t : threads) t.join();
   return 0;
+}
+
+// Runs body(team, b) for b in [0, B) with one serial lane (lanes = 1) or a
+// ThreadTeam of the card team's Lanes (32, the warp, unless the kernel runs
+// on a block); -1 for any other count.
+template <int Lanes = 32, typename Body> int run_host_team(int lanes, int64_t B, Body body) {
+  if (lanes == 1) {
+    SerialTeam tm;
+    for (int64_t b = 0; b < B; ++b) body(tm, b);
+    return 0;
+  }
+  return lanes == Lanes ? run_thread_team<Lanes>(B, body) : -1;
 }
 
 }  // namespace mpcq

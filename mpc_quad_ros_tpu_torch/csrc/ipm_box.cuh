@@ -100,24 +100,6 @@ template <typename T> MPCQ_HD T h_sym(const T* A, int ld, int i, int j) {
   return A[lo * ld + (i == j ? ld - 1 : hi)];
 }
 
-// Walks the row-major lower triangle {(a, c): 0 <= c <= a} by flat index
-// e = a (a + 1) / 2 + c, from a lane's first element in steps of the team
-// (once a solve, to fill the table).
-struct TriWalk {
-  int a = 0, c;
-  MPCQ_HD explicit TriWalk(int e) : c(e) { settle(); }
-  MPCQ_HD void settle() {
-    while (c > a) {
-      c -= a + 1;
-      ++a;
-    }
-  }
-  MPCQ_HD void advance(int step) {
-    c += step;
-    settle();
-  }
-};
-
 // Elements of one column's trailing update a lane loads before it stores.
 constexpr int CHOL_BATCH = 4;
 

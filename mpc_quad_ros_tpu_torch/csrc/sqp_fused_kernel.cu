@@ -107,8 +107,7 @@ MPCQ_HD void sqp_body(const Team& tm, int N, int iters, const Weights<T>& wt, co
   const int nz = N * SU, ld = nz + 1, ln = tm.lane, NL = Team::size;
   T *A = w.A, *g = w.g, *db = w.db;
 
-  condense<HLayout::Packed>(tm, N, wt, js, w.Mb, db, A, g, rg, dx0, ex0, (T*)nullptr,
-                            (T*)nullptr);
+  condense_packed(tm, N, wt, js, w.Mb, db, A, g, rg, dx0, ex0);
   for (int i = ln; i < nz; i += NL) g[i] = g[i] + gu[i];
   tm.sync();
 

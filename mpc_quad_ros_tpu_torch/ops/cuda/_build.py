@@ -56,6 +56,9 @@ DEVICE_ENTRIES = {
     "mpcq_box_qp_occupancy": [_I],
     "mpcq_lin_occupancy": [_I],
     "mpcq_riccati_occupancy": [_I],
+    "mpcq_condense_occupancy": [_I],
+    "mpcq_condense_ab_occupancy": [_I],
+    "mpcq_condense_ab_threads": [],
     **{name: [_I] for name in WS_ENTRIES},
 }
 HOST_ENTRIES = {
@@ -65,7 +68,9 @@ HOST_ENTRIES = {
     "mpcq_sqp_step_host_f64": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I],
     "mpcq_sqp_step_host32_f64": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I],
     "mpcq_condense_host_f64": [_P] * 9 + [_I64, _I],
+    "mpcq_condense_host32_f64": [_P] * 9 + [_I64, _I],
     "mpcq_condense_ab_host_f64": [_P] * 10 + [_I64, _I],
+    "mpcq_condense_ab_host256_f64": [_P] * 10 + [_I64, _I],
     "mpcq_box_qp_host_f64": [_P] * 9 + [_I64, _I, _I],
     "mpcq_box_qp_host32_f64": [_P] * 9 + [_I64, _I, _I],
     "mpcq_riccati_ipm_host_f64": [_P] * 11 + [_I64, _I, _I],

@@ -6,9 +6,10 @@ Kernel D replaces ``mpc_quad_ros_tpu/ops/pallas/condense_kernel.py::
 _condense_kernel_J`` (entry ``condense_cost_from_J_tiled``), kernel J
 replaces ``_condense_kernel`` (entry ``condense_cost_pallas``, which the JAX
 ``solve_batch`` runs for B < 128).  The CUDA source of both is
-``csrc/condense_kernel.cu`` (one warp per scenario, the condensing code of
-kernel B from ``csrc/condense.cuh``; bounded by the 2.6 GB it moves at
-B=65536, N=10, mostly the condensing maps M — see the source's header).
+``csrc/condense_kernel.cu`` (the condensing chains of kernel B from
+``csrc/condense.cuh``, one scenario run by a warp for kernel D and by a
+block for kernel J; bounded by the 2.6 GB it moves at B=65536, N=10, mostly
+the condensing maps M — see the source's header).
 
 Inputs: J (B, N, 17, 13), or A (B, N, 13, 13) and Bm (B, N, 13, 4); r
 (B, N, 13), dx0 (B, 13), ex0 (B, N+1, 13); q, p (13) and rw (4) weight
@@ -22,12 +23,13 @@ kernel for CUDA tensors (f32, contiguous, sm_90), raising on anything else.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 from .condense_common import NT, NU, NX, check_weights, condense, condense_from_J
 from .qp_kernel import check_smem
-
 
 def condense_cost_from_J_plain(J, r, dx0, ex0, q, p, rw):
     return condense_from_J(J, r, dx0, ex0, q, p, rw, with_maps=True)
@@ -37,6 +39,12 @@ def condense_cost_from_AB_plain(A, Bm, r, dx0, ex0, q, p, rw):
     return condense(A, Bm, r, dx0, ex0, q, p, rw, with_maps=True)
 
 
+@functools.lru_cache(maxsize=16)
+def _host_weights(weights: tuple) -> torch.Tensor:
+    """The weight floats the C entries read, one host tensor per tuple."""
+    return _build.host_floats(weights)
+
+
 def _launch(name, entry, tensors, shapes, B, N, q, p, rw):
     """Check the inputs, launch `entry` and return (H, g, M, d, status)."""
     _build.check_cuda_inputs(name, tensors, shapes)
@@ -44,7 +52,7 @@ def _launch(name, entry, tensors, shapes, B, N, q, p, rw):
     lib = _build.load_library()
     dev = next(iter(tensors.values())).device
     check_smem(name, lib.mpcq_condense_ws_bytes(N), dev, f"N={N}")
-    weights = _build.host_floats(list(q) + list(p) + list(rw))
+    weights = _host_weights(tuple(map(float, (*q, *p, *rw))))
     nz = N * NU
     kw = dict(dtype=torch.float32, device=dev)
     H = torch.empty((B, nz, nz), **kw)

@@ -116,8 +116,8 @@ def test_workspace_fits_up_to_fused_n_max(host_lib):
     assert (host_lib.mpcq_sqp_step_ws_bytes(n)
             == host_lib.mpcq_sqp_ws_bytes(n) + 4 * (n * (17 * 13 + 13) - 2 * 17 * 13))
     assert host_lib.mpcq_sqp_step_ws_bytes(n) <= limit < host_lib.mpcq_sqp_step_ws_bytes(50)
-    assert (host_lib.mpcq_box_qp_ws_bytes(4 * n) < host_lib.mpcq_sqp_ws_bytes(n)
-            < host_lib.mpcq_condense_ws_bytes(n) <= limit)
+    assert (host_lib.mpcq_condense_ws_bytes(n) < host_lib.mpcq_box_qp_ws_bytes(4 * n)
+            < host_lib.mpcq_sqp_ws_bytes(n) <= limit)
 
 
 @pytest.mark.parametrize("warm", [False, True])
