@@ -10,9 +10,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    one line per kernel B, E and F at N = 10 and 40 (nz = 40 and 160), kernel
    A at N = 10 and kernels C, D and J at N = 10 and 40: shared memory per
    block, registers and spills (the build log's ``-Xptxas -v``), resident
-   blocks and warps per SM (the occupancy API); kernel B must keep at least
-   12 warps resident per SM at N = 10, kernel C more than 11 at N = 40,
-   kernel D more than 11 at N = 10;
+   blocks and warps per SM (the occupancy API), and the same for kernels H
+   and I at nz = 40 (blocks of up to four warps, a tile each); kernel B must
+   keep at least 12 warps resident per SM at N = 10, kernel C more than 11
+   at N = 40, kernel D more than 11 at N = 10;
 3. kernel A (RK4 linearisation) against its plain PyTorch version, in f32
    and against the f64 plain version, at the main-path shapes, and NaN
    isolation between scenarios;
@@ -59,7 +60,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     TFLOP/s, the shared-memory one must read below it);
 15. kernels H and I (the transpose probe) at B=16384, nz=40 against their
     f32 and f64 plain versions with NaN isolation, then
-    ``bench/probe_hybrid.py::transpose_probe``, which gives their times;
+    ``bench/probe_hybrid.py::transpose_probe`` at reps = 4 and 32, which
+    gives their times (CUDA events, and the profiler's device time of one
+    launch, which the kernels line takes) beside the device time of
+    ``Tensor.copy_`` on the same tiles, a yardstick that moves the same
+    bytes;
 16. ``bench/phases.py::phase_table`` at B=16384 (kernel F's time per IPM
     iteration, kernels A, D, E alone, utilisations against the rate of 14);
 17. ``bench/probe_hybrid.py::hybrid_breakdown`` and ``jfed_standalone`` at
@@ -170,6 +175,10 @@ FMA_RATE_CEILING = 1.05 * bounds.F32_FLOP_PER_S
 # roundings), 4 repetitions.
 PROBE_REL_TOL = 1e-6
 BENCH_B = 16384
+# The transpose probe's width (the Hessian's at N = 10) and its repetitions:
+# the JAX default, and enough passes to outweigh the tiles' bytes.
+PROBE_NZ = 40
+PROBE_REPS = (4, 32)
 # Kernel B's resident warps per SM at N = 10: its block was cut to one
 # packed matrix so that at least this many reside (6 with three matrices
 # and J staged).
@@ -344,6 +353,14 @@ def phase_residency(regs: dict) -> None:
     check(d10 > CONDENSE_WARPS_BEFORE,
           f"residency: kernel D keeps {d10} warps per SM at N=10, not more than "
           f"{CONDENSE_WARPS_BEFORE}")
+    warps = lib.mpcq_transpose_block_warps(PROBE_NZ)
+    for name, key, mirror in (("mirror_probe", "mirror", 1), ("elem_probe", "elem", 0)):
+        blocks = lib.mpcq_transpose_occupancy(mirror, PROBE_NZ)
+        row = {"kernel": name, "instantiation": key, "nz": PROBE_NZ, "warps_per_block": warps,
+               "smem_bytes": warps * lib.mpcq_transpose_ws_bytes(PROBE_NZ), **regs.get(key, {}),
+               "resident_blocks_per_sm": blocks, "resident_warps_per_sm": blocks * warps}
+        emit("residency", **row)
+        check(warps > 0 and blocks > 0, f"residency: {name} at nz={PROBE_NZ} does not launch: {row}")
 
 
 def phase_kernel_a(device) -> dict:
@@ -1010,7 +1027,7 @@ def phase_kernels_hi(device) -> dict:
     """Kernels H and I at the probe's shape against their f32 and f64 plain
     versions, with NaN isolation.  Their times come from the transpose
     path."""
-    B, nz, reps = BENCH_B, 40, 4
+    B, nz, reps = BENCH_B, PROBE_NZ, PROBE_REPS[0]
     gen = torch.Generator(device=device).manual_seed(3)
     x = torch.randn((B, nz, nz), generator=gen, device=device)
     res = {}
@@ -1047,11 +1064,16 @@ def finite(d) -> bool:
 
 
 def phase_transpose(device) -> dict:
-    probe = probe_hybrid.transpose_probe(device=device)
-    emit("transpose_probe", **probe)
-    check(finite(probe) and probe["mirror_s"] > 0 and probe["elem_s"] > 0,
-          f"transpose probe: {probe}")
-    return probe
+    """The probe at each of PROBE_REPS; the result at the first."""
+    res = {}
+    for reps in PROBE_REPS:
+        probe = probe_hybrid.transpose_probe(nz=PROBE_NZ, B=BENCH_B, reps=reps, device=device)
+        emit("transpose_probe", **probe)
+        check(finite(probe) and all(probe[k] is not None and probe[k] > 0 for k in (
+            "mirror_s", "elem_s", "mirror_device_ms", "elem_device_ms")),
+              f"transpose probe: {probe}")
+        res = res or probe
+    return res
 
 
 def phase_table(device, peak) -> None:
@@ -1204,8 +1226,8 @@ def main() -> None:
             setattr(mod, name, fn)
     # the kernels' times on the paths that measure them
     res["fma_peak"]["ms"] = peak["register_resident_ms_per_launch"]
-    res["mirror_probe"]["ms"] = probe["mirror_s"] * 1e3
-    res["elem_probe"]["ms"] = probe["elem_s"] * 1e3
+    res["mirror_probe"]["ms"] = probe["mirror_device_ms"]
+    res["elem_probe"]["ms"] = probe["elem_device_ms"]
     small_step = {"lin_kernel", "condense_ab_kernel", "qp_kernel"}
     expect = {"hybrid": {"lin_kernel", "sqp_fused_kernel"} | small_step,
               "split": {"lin_kernel", "condense_kernel", "qp_kernel"},

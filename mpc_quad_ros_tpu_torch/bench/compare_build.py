@@ -1,5 +1,5 @@
-"""Kernels A-F and J of this checkout against another checkout's, on one
-card, in one process, on the same inputs.
+"""Kernels A-J of this checkout against another checkout's, on one card, in
+one process, on the same inputs.
 
     python -m mpc_quad_ros_tpu_torch.bench.compare_build --other PATH [--B 65536]
         [--solves split,hybrid]
@@ -15,13 +15,17 @@ kernel F on the trajectory; B, E and F cold and warm-started from the first
 solve's duals; kernel J on the A and B blocks of the first 1 and 127
 scenarios' J), and kernel C at N=40 on kernel A's J of the same cell's step
 at that horizon.  Kernel C's entry takes a device scratch where the library
-has ``mpcq_riccati_scratch_bytes`` (its other arguments are the same).  One
-JSON line per kernel and start: whether the two libraries' outputs are
-bitwise equal, their largest difference, and each library's CUDA-event
-time, taken in turns (other, this, this, other); kernel J's rows add each
-library's device time of one launch from ``torch.profiler`` (200
-launches).  The launch counters of this checkout's wrappers are not
-touched: the calls go to the C entries.
+has ``mpcq_riccati_scratch_bytes`` (its other arguments are the same).
+Kernels G, H and I (``mpcq_fma``, ``mpcq_mirror``, ``mpcq_elem``) run at the
+bench's shapes, whatever B: G at ``phases.REGISTER_SHAPE`` and
+``STREAMING_SHAPE`` on ``phases.fma_input``, H and I on the transpose
+probe's tiles (``probe_hybrid.probe_input``: B=16384, nz=40) at reps = 4
+and 32.  One JSON line per kernel and start: whether the two libraries'
+outputs are bitwise equal, their largest difference, and each library's
+CUDA-event time, taken in turns (other, this, this, other); the rows of
+kernels H, I and J add each library's device time of one launch from
+``torch.profiler`` (200 launches).  The launch counters of this
+checkout's wrappers are not touched: the calls go to the C entries.
 
 ``--solves`` adds the end-to-end view: for each pipeline named, each
 checkout's own package in a process of its own (other, this, this, other)
@@ -45,8 +49,10 @@ from ..models import fold_drag
 from ..ops.cuda import _build, condense_kernel, lin_kernel
 from ..ops.cuda.condense_common import split_AB
 from ..ops.cuda.lin_kernel import model_constants
+from . import phases
 from .operating_point import operating_point
 from .phases import card, device_seconds, kernel_device_ms
+from .probe_hybrid import probe_input
 
 
 def other_library(path: pathlib.Path):
@@ -190,32 +196,86 @@ def run_f(lib, inp, duals):
     return out
 
 
+def run_g(lib, inp, _duals):
+    x = inp["args"][0]
+    out = torch.empty_like(x)
+    rc = lib.mpcq_fma(x.data_ptr(), out.data_ptr(), x.numel(), inp["chains"], inp["steps"],
+                      int(inp["resident"]), torch.cuda.current_stream().cuda_stream)
+    _build.check_status("compare_build kernel G", rc)
+    return [out]
+
+
+def _run_probe(entry: str):
+    def run(lib, inp, _duals):
+        x = inp["args"][0]
+        out = torch.empty_like(x)
+        rc = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[-1],
+                                 inp["reps"], torch.cuda.current_stream().cuda_stream)
+        _build.check_status(f"compare_build {entry}", rc)
+        return [out]
+    return run
+
+
+def fma_inputs(shape, resident: bool, device) -> dict:
+    """Kernel G's arguments at one of the bench's shapes."""
+    sublanes, chains, steps, grid = shape
+    return {"args": [phases.fma_input(sublanes, grid, device)], "N": None, "chains": chains,
+            "steps": steps, "resident": resident}
+
+
 # (kernel, its run, whether it takes warm duals, its inputs: the N=10 step,
-# kernel J's blocks of its first 1 or 127 scenarios, or the N=40 step)
+# kernel J's blocks of its first 1 or 127 scenarios, the N=40 step, kernel
+# G's shapes, the probe's tiles at reps = 4 or 32)
 KERNELS = (("A", run_a, False, "step"), ("B", run_b, True, "step"),
            ("C", run_c, False, "riccati"), ("D", run_d, False, "step"),
            ("E", run_e, True, "step"), ("F", run_f, True, "step"),
-           ("J", run_j, False, "ab1"), ("J", run_j, False, "ab127"))
-# profiler launches per library and kernel J row
-J_PROFILE_REPS = 200
+           ("J", run_j, False, "ab1"), ("J", run_j, False, "ab127"),
+           ("G", run_g, False, "fma_registers"), ("G", run_g, False, "fma_smem"),
+           ("H", _run_probe("mpcq_mirror"), False, "probe4"),
+           ("H", _run_probe("mpcq_mirror"), False, "probe32"),
+           ("I", _run_probe("mpcq_elem"), False, "probe4"),
+           ("I", _run_probe("mpcq_elem"), False, "probe32"))
+# the kernel names the profiler's rows are matched on, by kernel
+PROFILED = {"H": "mirror_kernel", "I": "elem_kernel", "J": "condense_ab"}
+# profiler launches per library and profiled row
+PROFILE_REPS = 200
+# the transpose probe's batch and width
+PROBE_B, PROBE_NZ = 16384, 40
+
+
+def make_inputs(key: str, B: int, inputs: dict, device) -> dict:
+    """The inputs named `key`, made on first use (the step's at B)."""
+    if key in inputs:
+        return inputs[key]
+    if key == "step":
+        inp = step_inputs(B, device)
+    elif key.startswith("ab"):
+        inp = ab_inputs(make_inputs("step", B, inputs, device), int(key[2:]))
+    elif key == "riccati":
+        inp = riccati_step_inputs(B, device)
+    elif key.startswith("fma_"):
+        reg = key == "fma_registers"
+        inp = fma_inputs(phases.REGISTER_SHAPE if reg else phases.STREAMING_SHAPE, reg, device)
+    else:
+        inp = {"args": [probe_input(PROBE_B, PROBE_NZ, device)], "N": None,
+               "reps": int(key[len("probe"):])}
+    inputs[key] = inp
+    return inp
 
 
 def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
     dev = torch.device("cuda", 0)
     libs = {"other": other_library(other), "this": _build.load_library()}
-    inputs = {"step": step_inputs(B, dev)}
-    inputs.update({f"ab{n}": ab_inputs(inputs["step"], n) for n in (1, 127)})
-    rows = []
+    inputs, rows = {}, []
     for name, run, warm, key in KERNELS:
-        if key not in inputs:
-            inputs[key] = riccati_step_inputs(B, dev)
-        inp = inputs[key]
+        inp = make_inputs(key, B, inputs, dev)
         starts = (("cold", (None, None)),) + ((("warm", inp["duals"]),) if warm else ())
         for start, duals in starts:
             outs = {k: run(lib, inp, duals) for k, lib in libs.items()}
             torch.cuda.synchronize()
             row = {"kernel": name, "start": start if warm else "-",
                    "B": inp["args"][0].shape[0], "N": inp["N"],
+                   **{k: inp[k] for k in ("reps", "chains", "steps", "resident") if k in inp},
                    "bitwise": all(torch.equal(a, b) for a, b in zip(outs["this"], outs["other"])),
                    "max_abs_diff": max((a - b).abs().max().item()
                                        for a, b in zip(outs["this"], outs["other"])),
@@ -225,9 +285,9 @@ def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
             for k in ("other", "this", "this", "other"):
                 ms[k].append(device_seconds(lambda: run(libs[k], inp, duals), reps, dev) * 1e3)
             row.update({f"{k}_ms": v for k, v in ms.items()})
-            if name == "J":
+            if name in PROFILED:
                 row.update({f"{k}_device_ms": kernel_device_ms(
-                    lambda: run(libs[k], inp, duals), "condense_ab", J_PROFILE_REPS)
+                    lambda: run(libs[k], inp, duals), PROFILED[name], PROFILE_REPS)
                     for k in ("other", "this")})
             rows.append(row)
     return rows

@@ -95,10 +95,12 @@ def device_seconds(fn, reps: int, device, warmup: bool = True) -> float:
 
 
 def kernel_device_ms(fn, name: str, reps: int = 200):
-    """Mean device milliseconds of one launch of the kernels whose name holds
-    `name`, over `reps` calls of fn() (after one untimed call), from
-    torch.profiler's CUDA activity: the kernels alone, without the host's
-    launch path.  None when the profiler records no such kernel."""
+    """Device milliseconds a call of fn() spends in the kernels (or copies)
+    whose name holds `name`, over `reps` calls (after one untimed call), from
+    torch.profiler's CUDA activity: the device work alone, without the
+    host's launch path.  The mean activity times the activities a call
+    records (a device-to-device copy records two), rounded, since the
+    profiler may drop a few.  None when it records no such activity."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -106,10 +108,11 @@ def kernel_device_ms(fn, name: str, reps: int = 200):
             fn()
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages() if name in e.key]
-    launches = sum(e.count for e in hits)
-    if launches == 0:
+    count = sum(e.count for e in hits)
+    if count == 0:
         return None
-    return sum(e.device_time_total for e in hits) / launches / 1e3
+    per_call = max(1, round(count / reps))
+    return sum(e.device_time_total for e in hits) / count * per_call / 1e3
 
 
 def line_fit(times: dict) -> tuple[float, float]:

@@ -34,8 +34,8 @@ from ..ops.cuda import _build, lin_kernel, riccati_kernel, sqp_fused_kernel
 from ..ops.sqp import MPCConfig, SQPSolver, init_carry
 from . import bounds
 from .operating_point import operating_point
-from .phases import (QW, RW, _bench_setup, device_kind, device_seconds, line_fit,
-                     resolve_device, time_solves, vpu_peak)
+from .phases import (QW, RW, _bench_setup, device_kind, device_seconds, kernel_device_ms,
+                     line_fit, resolve_device, time_solves, vpu_peak)
 
 # ------------------------------------------------------------------ #
 # kernel B alone, and the hybrid step's glue
@@ -151,13 +151,18 @@ def elem_probe_plain(x, reps: int):
 def _launch_probe(name: str, entry: str, x, reps: int):
     B, nz = x.shape[0], x.shape[-1]
     _build.check_cuda_inputs(name, {"x": x}, {"x": (B, nz, nz)})
+    if nz % 4:
+        raise ValueError(f"{name}: nz={nz} is not a multiple of 4 (the kernel moves 16-byte quads)")
+    out = torch.empty_like(x)
+    for key, t in (("x", x), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} is not 16-byte aligned")
     lib = _build.load_library()
     need = lib.mpcq_transpose_ws_bytes(nz)
     limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
-    if need > limit:
-        raise ValueError(f"{name}: nz={nz} needs {need} bytes of shared memory per block, "
-                         f"the device allows {limit}")
-    out = torch.empty_like(x)
+    if not 0 < need <= limit:
+        raise ValueError(f"{name}: nz={nz} needs {need or 'more'} bytes of shared memory per "
+                         f"warp, the device allows {limit} a block")
     rc = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), B, nz, int(reps),
                              torch.cuda.current_stream(x.device).cuda_stream)
     return out, rc
@@ -165,7 +170,8 @@ def _launch_probe(name: str, entry: str, x, reps: int):
 
 def mirror_probe(x, reps: int):
     """Kernel H on x (B, nz, nz): the plain version for a CPU tensor, the
-    kernel for a CUDA tensor (f32, contiguous, sm_90)."""
+    kernel for a CUDA tensor (f32, contiguous, 16-byte aligned, nz % 4 == 0,
+    sm_90)."""
     if x.device.type == "cpu":
         return mirror_probe_plain(x, reps)
     out, rc = _launch_probe("mirror_probe", "mpcq_mirror", x, reps)
@@ -188,20 +194,41 @@ mirror_probe.launches = 0
 elem_probe.launches = 0
 
 
+def probe_input(B: int = 128 * 128, nz: int = 40, device="cuda"):
+    """The probe's (B, nz, nz) f32 tiles: ``torch.randn`` from seed 0 on the
+    device (the JAX probe's 128 tiles of 128 scenarios by default)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    return torch.randn((B, nz, nz), generator=gen, dtype=torch.float32, device=device)
+
+
 def transpose_probe(nz: int = 40, B: int = 128 * 128, reps: int = 4, device="cuda",
                     launches: int = 100) -> dict:
-    """Kernels H and I on the same random (B, nz, nz) tiles (the JAX probe's
-    128 tiles of 128 scenarios), `launches` launches each: (mirror - elem) /
-    reps is one mirror, per scenario and for the whole batch."""
+    """Kernels H and I on the same random (B, nz, nz) tiles, `launches`
+    launches each (CUDA events): (mirror - elem) / reps is one mirror, per
+    scenario and for the whole batch.  On the card also each kernel's device
+    time of one launch (``phases.kernel_device_ms``, without the wrapper's
+    host path) and, as a yardstick that moves the same bytes but computes
+    nothing of the probe, the device time of ``Tensor.copy_`` on the same
+    tiles; and the bound (``bounds.transpose_work``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn((B, nz, nz), generator=gen, dtype=torch.float32, device=dev)
+    x = probe_input(B, nz, dev)
     t_mirror = device_seconds(lambda: mirror_probe(x, reps), launches, dev)
     t_elem = device_seconds(lambda: elem_probe(x, reps), launches, dev)
     per_batch = (t_mirror - t_elem) / reps
-    return {"mirror_s": t_mirror, "elem_s": t_elem, "transpose_per_scenario_s": per_batch / B,
-            "transpose_batch_s": per_batch, "device_kind": device_kind(dev),
-            "note": f"nz={nz}, B={B}, reps={reps}"}
+    out = {"mirror_s": t_mirror, "elem_s": t_elem, "transpose_per_scenario_s": per_batch / B,
+           "transpose_batch_s": per_batch, "device_kind": device_kind(dev),
+           "note": f"nz={nz}, B={B}, reps={reps}", "reps": reps,
+           "bound_ms": bounds.transpose_work(B, nz, reps)["bound_ms"]}
+    if dev.type == "cuda":
+        y = torch.empty_like(x)
+        out.update({
+            "mirror_device_ms": kernel_device_ms(lambda: mirror_probe(x, reps), "mirror_kernel",
+                                                 launches),
+            "elem_device_ms": kernel_device_ms(lambda: elem_probe(x, reps), "elem_kernel",
+                                               launches),
+            # a contiguous copy on one device is a device-to-device memcpy
+            "copy_yardstick_device_ms": kernel_device_ms(lambda: y.copy_(x), "Memcpy", launches)})
+    return out
 
 
 # ------------------------------------------------------------------ #

@@ -89,6 +89,30 @@ struct TriWalk {
   }
 };
 
+// Four consecutive elements in device memory: on the card one 16-byte access
+// (the address 16-byte aligned; loads through the read-only path), on the
+// host four.
+template <typename T> struct Quad { T v[4]; };
+MPCQ_HD Quad<float> load4(const float* src) {
+#if defined(__CUDA_ARCH__)
+  const float4 q = __ldg(reinterpret_cast<const float4*>(src));
+  return {{q.x, q.y, q.z, q.w}};
+#else
+  return {{src[0], src[1], src[2], src[3]}};
+#endif
+}
+MPCQ_HD Quad<double> load4(const double* src) { return {{src[0], src[1], src[2], src[3]}}; }
+MPCQ_HD void store4(float* dst, float a, float b, float c, float d) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+#else
+  dst[0] = a; dst[1] = b; dst[2] = c; dst[3] = d;
+#endif
+}
+MPCQ_HD void store4(double* dst, double a, double b, double c, double d) {
+  dst[0] = a; dst[1] = b; dst[2] = c; dst[3] = d;
+}
+
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 

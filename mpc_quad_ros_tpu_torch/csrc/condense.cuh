@@ -204,19 +204,6 @@ template <typename T> struct CondenseWork {
   }
 };
 
-// Four consecutive elements of a row of M or H to device memory: one 16-byte
-// store on the card (dst 16-byte aligned), four on the host.
-MPCQ_HD void store4(float* dst, float a, float b, float c, float d) {
-#if defined(__CUDA_ARCH__)
-  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-#else
-  dst[0] = a; dst[1] = b; dst[2] = c; dst[3] = d;
-#endif
-}
-MPCQ_HD void store4(double* dst, double a, double b, double c, double d) {
-  dst[0] = a; dst[1] = b; dst[2] = c; dst[3] = d;
-}
-
 // A lane's walk over the quads (row, 4 q) of a rows x 4 nq row-major array,
 // from quad `f` in steps of `step`, with no division after the first.
 struct QuadWalk {

@@ -59,6 +59,8 @@ DEVICE_ENTRIES = {
     "mpcq_condense_occupancy": [_I],
     "mpcq_condense_ab_occupancy": [_I],
     "mpcq_condense_ab_threads": [],
+    "mpcq_transpose_block_warps": [_I],
+    "mpcq_transpose_occupancy": [_I, _I],
     **{name: [_I] for name in WS_ENTRIES},
 }
 HOST_ENTRIES = {
@@ -78,6 +80,8 @@ HOST_ENTRIES = {
     "mpcq_fma_host_f64": [_P, _P, _I64, _I, _I, _I],
     "mpcq_mirror_host_f64": [_P, _P, _I64, _I, _I],
     "mpcq_elem_host_f64": [_P, _P, _I64, _I, _I],
+    "mpcq_mirror_host32_f64": [_P, _P, _I64, _I, _I],
+    "mpcq_elem_host32_f64": [_P, _P, _I64, _I, _I],
     **{name: [_I] for name in WS_ENTRIES},
 }
 # entries that return something other than a CUDA status (int)

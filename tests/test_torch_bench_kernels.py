@@ -9,9 +9,16 @@ and I (the transpose probe, ``bench/probe_hybrid.py::mirror_probe`` and
   same order; XLA may fuse a multiply-add, so an entry that cancels may
   differ in its last bits).
 - The kernels' own sources built with g++ for the host against the plain
-  versions, with NaN isolation between scenarios for H and I.
+  versions, with NaN isolation between scenarios for H and I.  The host
+  entries of H and I run the card's scenario walk: four persistent warps,
+  each a serial lane or 32 threads, at the card's stride, with the next
+  scenario's quads loaded ahead; B = 1, 5 and 33 leave warps without a
+  scenario in the last round; on 32 lanes nz = 40 and 44 read slots of the
+  schedule past those held in registers, and nz = 44 loads a tile in two
+  rounds.
 - On a CUDA device (skipped here): the kernels against their plain versions
-  in f32 and in f64."""
+  in f32 and in f64, and the probe's wrappers refusing what the kernels do
+  not take."""
 
 import functools
 
@@ -114,6 +121,58 @@ def test_probe_source_on_host_matches_plain(host_lib, name):
     assert torch.equal(out_bad[keep], out[keep])
 
 
+# persistent warps of the host entries of kernels H and I (PROBE_WARPS)
+HOST_WARPS = 4
+
+
+def _probe_entry(host_lib, name, lanes):
+    return getattr(host_lib, f"mpcq_{name}_host{'' if lanes == 1 else lanes}_f64")
+
+
+def _run_probe_entry(entry, x, reps):
+    out = torch.full_like(x, float("nan"))
+    assert entry(ptr(x), ptr(out), x.shape[0], x.shape[-1], reps) == 0
+    return out
+
+
+@pytest.mark.parametrize("nz", [8, 40, 44])
+@pytest.mark.parametrize("B", [1, 5, 33])
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("name", sorted(PROBES))
+def test_probe_host_walk_matches_plain(host_lib, name, lanes, B, nz):
+    _, plain, _ = PROBES[name]
+    reps = 4
+    x = torch.from_numpy(np.random.default_rng(B * nz).standard_normal((B, nz, nz)))
+    out = _run_probe_entry(_probe_entry(host_lib, name, lanes), x, reps)
+    assert _rel(out.numpy(), plain(x, reps).numpy()) <= 1e-14
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("name", sorted(PROBES))
+def test_probe_host_nan_spares_the_warps_next_scenario(host_lib, name, lanes):
+    """Warp 1 of four walks scenarios 1, 5 and 9: a NaN in 1 reaches no
+    other scenario, 5 and 9 included, whose quads it loads while 1 runs."""
+    entry = _probe_entry(host_lib, name, lanes)
+    B, nz, reps, bad = 11, 40, 4, 1
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((B, nz, nz)))
+    out = _run_probe_entry(entry, x, reps)
+    x_bad = x.clone()
+    x_bad[bad, 7, 3] = float("nan")     # strict lower: both probes carry it
+    out_bad = _run_probe_entry(entry, x_bad, reps)
+    keep = torch.arange(B) != bad
+    assert torch.isnan(out_bad[bad]).any()
+    assert torch.equal(out_bad[keep], out[keep])
+    assert torch.equal(out_bad[bad + HOST_WARPS], out[bad + HOST_WARPS])
+
+
+@pytest.mark.parametrize("name", sorted(PROBES))
+def test_probe_host_refuses_widths_not_multiple_of_4(host_lib, name):
+    x = torch.zeros((2, 6, 6), dtype=torch.float64)
+    out = torch.empty_like(x)
+    for lanes in (1, 32):
+        assert _probe_entry(host_lib, name, lanes)(ptr(x), ptr(out), 2, 6, 4) != 0
+
+
 def test_cpu_tensors_take_the_plain_versions():
     phases.fma_chains.launches = 0
     probe_hybrid.mirror_probe.launches = probe_hybrid.elem_probe.launches = 0
@@ -148,3 +207,16 @@ def test_cuda_probe_matches_plain(name):
     out = wrapper(x.float().to(dev), 4)
     # one multiply-add a repetition per entry: f32 rounding, relative
     assert _rel(out.double().cpu().numpy(), plain(x, 4).numpy()) < 1e-6
+
+
+@pytest.mark.parametrize("name", sorted(PROBES))
+def test_cuda_probe_refuses_odd_widths_and_unaligned_views(name):
+    dev = require_cuda()
+    _, _, wrapper = PROBES[name]
+    launches = wrapper.launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        wrapper(torch.zeros((8, 6, 6), device=dev), 4)
+    flat = torch.zeros(8 * 40 * 40 + 1, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wrapper(flat[1:].view(8, 40, 40), 4)
+    assert wrapper.launches == launches
