@@ -33,13 +33,25 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    versions;
 7. the card's solves against the f64 solves on the CPU, N=10 (each
    pipeline) and N=40, and the three pipelines against each other at
-   B=65536 (U bitwise equal);
+   B=65536 (U bitwise equal); then the per-scenario ``SQPSolver.solve`` at
+   B=1024 ("pdip" and "projected_newton" at N=10, "riccati" at N=40) and
+   ``solve_batch`` at the ROS shapes (N=5; 20 basis vectors a axis) against
+   their f64 CPU solves, with NaN isolation; the per-scenario f32 IPM's lost
+   scenarios from N=16 to 31 (B=16384); one episode on the CPU in f64, the
+   reference of phase 9's episode;
 8. the N=10 slice: ``SQPSolver.solve_batch`` at B=65536, 20 chained
    warm-started solves (solves/s), one-scenario latency through the
    small-batch step, kernels A, J and E (p50/p99 of 20 runs of 50 chained
    solves, CUDA events);
 9. the closed learning loop: 16384 episodes x 100 ticks on the accelerating
-   circle at 8 m/s (tick-solves/s, tracking error from tick 30 on);
+   circle at 8 m/s (tick-solves/s, tracking error from tick 30 on); then the
+   per-scenario paths: ``run_episode`` for one hummingbird, 100 ticks, each
+   tick timed (p50/p99), and one scenario's ``solve`` alone (kernels A and
+   J); ``run_episode_batch`` on the closed loop's scenario (kernels A and
+   D); the fused loop on a heterogeneous batch of 16384 (v_max 4, 8, 12
+   m/s; ``traj_len``, ``episode_ticks``: finished episodes stay bitwise
+   frozen) and 10 ticks with ``control_skip`` = 10 on a trajectory sampled
+   10x finer (bitwise the run on its every tenth sample);
 10. the "split" and "fused" slices: the N=10 slice's chained solves through
     kernels A, D, E and through kernel F alone;
 11. the warm-dual regulation chain (``bench/regulation.py``) at B=65536, 40
@@ -76,8 +88,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     glue, kernel C, ``_riccati_finish``) and whole;
 20. ``bench/headline.py::measure`` without the closed loop (phase 9 runs it).
 
-The launch counters are reset just before each path (phases 8-9, 10 split,
-10 fused, 11, 12, and the measured parts of 14-20) and read just after; each
+The launch counters are reset just before each path (phases 8-9 with the
+episode, the episode batch and the heterogeneous batch each a path of its
+own, 10 split, 10 fused, 11, 12, and the measured parts of 14-20) and read
+just after; each
 path must have launched its kernels and no other.  Every chained solve is
 timed by ``bench/phases.py::time_solves``.  The plain versions are
 fenced off on those paths.  The line before the last lists every kernel with
@@ -101,9 +115,11 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from mpc_quad_ros_tpu_torch.bench import bounds, headline, phases, probe_hybrid, suite  # noqa: E402
-from mpc_quad_ros_tpu_torch.bench.closed_loop import closed_loop  # noqa: E402
-from mpc_quad_ros_tpu_torch.bench.crossover import crossover_row  # noqa: E402
+from mpc_quad_ros_tpu_torch.bench import (bounds, headline, per_scenario, phases,  # noqa: E402
+                                           probe_hybrid, suite)
+from mpc_quad_ros_tpu_torch.bench.closed_loop import (closed_loop, hetero_closed_loop,  # noqa: E402
+                                                      skip_closed_loop)
+from mpc_quad_ros_tpu_torch.bench.crossover import crossover_row, per_scenario_row  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.operating_point import N_BASIS, operating_point  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.regulation import regulation_chain, regulation_setup  # noqa: E402
 from mpc_quad_ros_tpu_torch.models import (fold_drag, hummingbird_params,  # noqa: E402
@@ -154,6 +170,22 @@ U_BOX_SLACK = 1e-6
 # The closed loop's tracking error: about twice the physics figure of the
 # JAX benchmark's run of the same scenario (0.022 m).
 ERR_MEAN_TOL = 0.05
+# The single episode on the card (f32) against the same episode on the CPU
+# (f64): its tracking error within this share of the f64 run's.
+EPISODE_ERR_REL_TOL = 0.10
+# The heterogeneous batch's masked tracking error (v_max 4, 8, 12 m/s over
+# 40 m from each circle's start): about twice this scenario's figure in f32
+# on the CPU (bench/closed_loop.py::hetero_closed_loop, B=6: 0.094 m).
+HETERO_ERR_TOL = 0.2
+# The per-scenario solve against the f64 CPU solve, and the batched solve at
+# the ROS shapes (N=5; N=10 with 20 basis vectors a axis) against its f64
+# plain version: B.
+PER_SCENARIO_B = 1024
+# The horizons from the port's "auto" switch (AUTO_RICCATI_MIN_N = 16) to the
+# JAX package's per-scenario one (32), where the per-scenario solve's f32
+# unscaled IPM is counted for lost scenarios: the measurement behind taking
+# 16 on that path too.
+AUTO_RANGE_N = (16, 20, 24, 28, 31)
 
 
 def fma_rel_tol(chains: int, steps: int) -> float:
@@ -937,6 +969,153 @@ def phase_riccati_slice(device) -> dict:
     return {"solves_per_s": solves_per_s}
 
 
+def solve_stats(sol, ref) -> dict:
+    """A card solve against the f64 CPU solve: |dU| and the KKT distribution
+    (kernel B's rules, ``check_qp``)."""
+    return qp_stats(sol.U.flatten(1), sol.kkt_residual.cpu(), ref.U.flatten(1).to(sol.U.device),
+                    ref.kkt_residual)
+
+
+def phase_solve_vs_cpu(device) -> None:
+    """The per-scenario solve on the card (f32) against the CPU's (f64) at
+    the solve cell's operating point, B=1024: "pdip" and "projected_newton"
+    at N=10 (kernels A and D, the unscaled IPM or projected Newton in tensor
+    code), "riccati" at N=40 (kernels A and C); NaN isolation on the card.
+    Projected Newton is held to the oracle's KKT distribution only: 12 of
+    its iterations leave most of these QPs far from their optimum (86 % above
+    KKT 1e-3 in f64, the JAX package's algorithm), where an active set that
+    rounding flips moves a control across its box (|dU| 0.99 on the card)."""
+    rows = {}
+    for method, N in (("pdip", 10), ("projected_newton", 10), ("riccati", N_LONG)):
+        kw = dict(mu_scale=0.3, N=N, qp_method=method)
+        solver, carry, x0, y_ref, rgp = operating_point(PER_SCENARIO_B, device, **kw)
+        _, sol = solver.solve(carry, x0, y_ref, y_ref[:, -1], rgp)
+        s64, c64, x64, y64, r64 = operating_point(PER_SCENARIO_B, "cpu", torch.float64, **kw)
+        _, ref = s64.solve(c64, x64, y64, y64[:, -1], r64)
+        st = solve_stats(sol, ref)
+        bad = 7
+        x_bad = x0.clone()
+        x_bad[bad, 8] = float("nan")
+        _, sol_bad = solver.solve(carry, x_bad, y_ref, y_ref[:, -1], rgp)
+        st["nan_isolated"] = isolated(bad, (sol.U, sol.X, sol.cost, sol.kkt_residual),
+                                      (sol_bad.U, sol_bad.X, sol_bad.cost, sol_bad.kkt_residual))
+        st["nonfinite_share"] = (~torch.isfinite(sol.U)).flatten(1).any(1).double().mean().item()
+        rows[f"{method}_N{N}"] = st
+    emit("solve_vs_cpu_f64", B=PER_SCENARIO_B, **{f"{m}_{k}": v for m, r in rows.items()
+                                                  for k, v in r.items()},
+         tol_z=QP_Z_TOL, tol_kkt=QP_KKT_TOL)
+    for name, st in rows.items():
+        check(st["nonfinite_share"] == 0, f"solve {name}: non-finite controls {st}")
+        check(st["nan_isolated"], f"solve {name}: a NaN scenario changed another scenario's outputs")
+        if name.startswith("projected_newton"):
+            check(st["kkt_max"] <= st["kkt_f64_max"] + QP_KKT_TOL
+                  and st["kkt_share_le_1e-3"] >= st["kkt_f64_share_le_1e-3"] - 0.01,
+                  f"solve {name}: KKT distribution off the oracle's: {st}")
+        else:
+            check_qp(f"solve {name}", st)
+
+
+def phase_solve_batch_shapes(device) -> None:
+    """``solve_batch`` at the ROS shapes, N=5 (the horizon of the ROS parity
+    logs) and N=10 with 20 RGP basis vectors a axis (the ROS default), on
+    the card (kernels A and B) against its f64 plain version on the CPU, by
+    kernel B's rules, except that the share of scenarios at KKT <= 1e-3 may
+    trail the lower of the oracle's and the f32 plain version's (on the CPU)
+    by one point: at 20 basis vectors a third of the scenarios sit within a
+    factor of two of 1e-3 in f64, where f32 rounding alone moves the share."""
+    row = {}
+    for tag, kw in (("N5", dict(N=5)), ("nb20", dict(n_basis=20))):
+        solver, carry, x0, y_ref, rgp = operating_point(PER_SCENARIO_B, device, mu_scale=0.3, **kw)
+        _, sol = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
+        ref, plain = ({}, {})
+        for out, dtype in ((ref, torch.float64), (plain, torch.float32)):
+            s_, c_, x_, y_, r_ = operating_point(PER_SCENARIO_B, "cpu", dtype, mu_scale=0.3, **kw)
+            out["sol"] = s_.solve_batch(c_, x_, y_, y_[:, -1], r_)[1]
+        row[tag] = st = solve_stats(sol, ref["sol"])
+        st["kkt_plain_f32_share_le_1e-3"] = (plain["sol"].kkt_residual <= QP_KKT_TOL).double().mean().item()
+        st["finite"] = bool(torch.isfinite(sol.U).all() and torch.isfinite(sol.X).all())
+    emit("solve_batch_ros_shapes", B=PER_SCENARIO_B,
+         **{f"{t}_{k}": v for t, r in row.items() for k, v in r.items()}, tol_z=QP_Z_TOL,
+         tol_kkt=QP_KKT_TOL)
+    for tag, st in row.items():
+        check(st["finite"], f"solve_batch {tag}: non-finite output")
+        check(st["z_vs_f64"] < QP_Z_TOL, f"solve_batch {tag} z: {st}")
+        check(st["kkt_max"] <= st["kkt_f64_max"] + QP_KKT_TOL,
+              f"solve_batch {tag}: max KKT beyond the f32 floor over the oracle's: {st}")
+        floor = min(st["kkt_f64_share_le_1e-3"], st["kkt_plain_f32_share_le_1e-3"])
+        check(st["kkt_share_le_1e-3"] >= floor - 0.01,
+              f"solve_batch {tag} converges in fewer scenarios than the oracle and the f32 plain "
+              f"version: {st}")
+
+
+def phase_per_scenario_auto_range(device) -> None:
+    """The per-scenario solve's condensed step in f32 from N=16 to N=31,
+    where the JAX package's per-scenario "auto" still takes it (its switch is
+    at 32) and the port's takes the Riccati step: ms per solve and the share
+    of scenarios with non-finite controls, B=16384 as the crossover rows."""
+    rows = [per_scenario_row(CROSS_B, N, reps=2, device=device) for N in AUTO_RANGE_N]
+    emit("per_scenario_auto_range", rows=rows, auto_switch=sqp.AUTO_RICCATI_MIN_N)
+    check(finite(rows), f"per-scenario auto range: {rows}")
+
+
+def phase_episode_cpu_f64() -> dict:
+    """The single episode on the CPU in f64, the card episode's reference
+    (run before the card paths, whose plain versions are fenced off)."""
+    ep = per_scenario.episode("cpu", torch.float64)
+    emit("episode_cpu_f64", **ep)
+    check(ep["finite"] and ep["err_mean_m"] < ERR_MEAN_TOL, f"episode on the CPU: {ep}")
+    return ep
+
+
+def phase_episode(device, ref: dict) -> dict:
+    """``run_episode`` for one hummingbird in f32, a tick a call (the tick's
+    wall time), then one scenario's ``solve`` alone (CUDA events): kernels A
+    and J, the unscaled IPM in tensor code."""
+    ep = per_scenario.episode(device)
+    lat = per_scenario.solve_latency(device)
+    rel = abs(ep["err_mean_m"] - ref["err_mean_m"]) / ref["err_mean_m"]
+    emit("episode", **ep, solve_p50_ms=lat["solve_p50_ms"], solve_p99_ms=lat["solve_p99_ms"],
+         solve_chained=lat["chained"], solve_runs=lat["runs"], err_mean_m_cpu_f64=ref["err_mean_m"],
+         err_rel_vs_cpu_f64=rel, tol_err=ERR_MEAN_TOL, tol_rel=EPISODE_ERR_REL_TOL)
+    check(ep["finite"], f"episode: non-finite output {ep}")
+    check(ep["u_min"] >= -U_BOX_SLACK and ep["u_max"] <= 1 + U_BOX_SLACK,
+          f"episode: controls left the box {ep}")
+    check(ep["err_mean_m"] < ERR_MEAN_TOL, f"episode: err_mean_m {ep['err_mean_m']} >= {ERR_MEAN_TOL}")
+    check(rel <= EPISODE_ERR_REL_TOL, f"episode: err_mean_m {ep['err_mean_m']} not within "
+          f"{EPISODE_ERR_REL_TOL} of the CPU f64 run's {ref['err_mean_m']}")
+    return {**ep, **lat}
+
+
+def phase_episode_batch(device) -> dict:
+    """``run_episode_batch`` (the per-scenario solve: kernels A and D, the
+    unscaled IPM) on the closed loop's scenario, 16384 x 100 ticks."""
+    cl = closed_loop(B=CLOSED_B, v=8.0, t_max=10.0, device=device, per_scenario=True)
+    emit("episode_batch", **cl, tol_err=ERR_MEAN_TOL)
+    check(math.isfinite(cl["err_mean_m"]) and math.isfinite(cl["err_p95_m"]),
+          f"episode batch: non-finite error {cl}")
+    check(cl["err_mean_m"] < ERR_MEAN_TOL, f"episode batch: err_mean_m {cl['err_mean_m']}")
+    return cl
+
+
+def phase_hetero(device) -> dict:
+    """``run_episode_batch_fused`` on a heterogeneous batch of 16384 (v_max
+    4, 8 and 12 m/s: traj_len and episode_ticks each episode's own), then 10
+    ticks with control_skip = 10 on a trajectory sampled 10x finer against
+    the same ticks on its every tenth sample."""
+    summary, final, outs = hetero_closed_loop(B=CLOSED_B, device=device)
+    # every finished episode logs its frozen state at each later tick, and
+    # its carry is that state
+    frozen = bool(((outs.x_odom == final.x[:, None]).all(-1) | outs.active).all())
+    skip = skip_closed_loop(B=CLOSED_B, ticks=10, device=device)
+    emit("hetero", **summary, frozen_bitwise=frozen, control_skip=skip, tol_err=HETERO_ERR_TOL)
+    check(frozen, "hetero: a finished episode's state moved")
+    check(math.isfinite(summary["rmse_mean_m"]) and summary["rmse_mean_m"] < HETERO_ERR_TOL,
+          f"hetero: masked tracking error {summary}")
+    check(skip["finite"] and skip["bitwise_equal_to_coarse"],
+          f"hetero: control_skip=10 differs from the coarse trajectory's run {skip}")
+    return summary
+
+
 def phase_crossover(device) -> None:
     """Condensed against Riccati as N grows; N=16 is where "auto" switches.
     Below AUTO_RICCATI_MIN_N the condensed step must keep every scenario."""
@@ -1197,6 +1376,11 @@ def main() -> None:
     phase_riccati_vs_cpu(device)
     phase_pipelines_agree(device)
     torch.cuda.empty_cache()
+    phase_solve_vs_cpu(device)
+    phase_solve_batch_shapes(device)
+    phase_per_scenario_auto_range(device)
+    episode_ref = phase_episode_cpu_f64()
+    torch.cuda.empty_cache()
 
     # the main paths: counts from 0 before each, plain versions fenced off
     saved = [getattr(mod, name) for mod, name in PLAINS]
@@ -1209,6 +1393,9 @@ def main() -> None:
             "fused": drive(lambda: phase_pipeline_slice(device, "fused")),
             "warm_chain": drive(lambda: phase_warm_chain(device)),
             "riccati": drive(lambda: phase_riccati_slice(device)),
+            "episode": drive(lambda: phase_episode(device, episode_ref)),
+            "episode_batch": drive(lambda: phase_episode_batch(device)),
+            "hetero": drive(lambda: phase_hetero(device)),
         }
         phase_crossover(device)
         torch.cuda.empty_cache()
@@ -1235,6 +1422,9 @@ def main() -> None:
               "warm_chain": {"lin_kernel", "sqp_fused_kernel", "condense_kernel", "qp_kernel",
                              "sqp_step_kernel"},
               "riccati": {"lin_kernel", "riccati_ipm"},
+              "episode": {"lin_kernel", "condense_ab_kernel"},
+              "episode_batch": {"lin_kernel", "condense_kernel"},
+              "hetero": {"lin_kernel", "sqp_fused_kernel"},
               "peak": {"fma_peak"},
               "transpose": {"mirror_probe", "elem_probe"},
               "phases": {"sqp_step_kernel", "lin_kernel", "condense_kernel", "qp_kernel"},

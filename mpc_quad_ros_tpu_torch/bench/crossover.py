@@ -26,14 +26,16 @@ from .operating_point import operating_point
 from .phases import time_solves
 
 
-def time_backend(B: int, N: int, qp_method: str, reps: int, device) -> tuple[float, float]:
+def time_backend(B: int, N: int, qp_method: str, reps: int, device,
+                 method: str = "solve_batch") -> tuple[float, float]:
     """(milliseconds per batched solve over `reps` chained solves that
     follow a first solve (``phases.time_solves``), share of scenarios with
     non-finite controls after the last: solve 1 + `reps` from the initial
-    carry, the count behind ``AUTO_RICCATI_MIN_N``)."""
+    carry, the count behind ``AUTO_RICCATI_MIN_N``, for ``solve_batch`` and,
+    with `method` "solve", for the per-scenario path)."""
     solver, carry, x0, y_ref, rgp = operating_point(B, device, N=N, qp_method=qp_method)
-    carry, _ = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
-    times, sol = time_solves(solver, carry, x0, y_ref, rgp, reps, device)
+    carry, _ = getattr(solver, method)(carry, x0, y_ref, y_ref[:, -1], rgp)
+    times, sol = time_solves(solver, carry, x0, y_ref, rgp, reps, device, method=method)
     bad = (~torch.isfinite(sol.U)).flatten(1).any(1).double().mean().item()
     return times[0] * 1e3, bad
 
@@ -53,6 +55,15 @@ def crossover_row(B: int, N: int, reps: int = 3, device="cuda") -> dict:
     if row["riccati_nonfinite_share"] > 0:
         raise RuntimeError(f"crossover: non-finite Riccati controls at N={N}: {row}")
     return row
+
+
+def per_scenario_row(B: int, N: int, reps: int = 2, device="cuda") -> dict:
+    """The per-scenario ``solve``'s condensed step (kernels A and D, the
+    unscaled IPM in tensor code) at horizon N: ms per batched solve and the
+    share of scenarios with non-finite controls."""
+    ms, bad = time_backend(B, N, "pdip", reps, device, method="solve")
+    return {"n_nodes": N, "B": B, "per_scenario_pdip_ms": ms,
+            "per_scenario_pdip_nonfinite_share": bad}
 
 
 def main() -> None:

@@ -36,13 +36,15 @@ TARGET_SOLVES_PER_S = 10000.0
 LATENCY_CHAIN, LATENCY_RUNS = 50, 20
 
 
-def one_scenario_latency(solver, carry, x0, y_ref, rgp, device) -> tuple[float, float]:
-    """(p50, largest) ms per solve of the first scenario alone, chained: the
-    small-batch step (kernels A, J, E), as ``bench.py``'s B=1 latency takes
-    the JAX package's B < 128 route."""
-    one = lambda a: a[:1]
-    times, _ = time_solves(solver, carry.map(one), x0[:1], y_ref[:1], rgp.map(one),
-                           LATENCY_CHAIN, device, LATENCY_RUNS)
+def one_scenario_latency(solver, carry, x0, y_ref, rgp, device,
+                         method: str = "solve_batch") -> tuple[float, float]:
+    """(p50, largest) ms per solve of the first scenario alone, chained:
+    through ``solve_batch`` the small-batch step (kernels A, J, E), as
+    ``bench.py``'s B=1 latency takes the JAX package's B < 128 route; through
+    "solve" the per-scenario path on x0 of shape (13,)."""
+    one = (lambda a: a[0]) if method == "solve" else (lambda a: a[:1])
+    times, _ = time_solves(solver, carry.map(one), one(x0), one(y_ref), rgp.map(one),
+                           LATENCY_CHAIN, device, LATENCY_RUNS, method=method)
     lat = sorted(t * 1e3 for t in times)
     return lat[len(lat) // 2], lat[-1]
 

@@ -18,14 +18,15 @@ N_BASIS = 10
 def operating_point(B: int, device, dtype=torch.float32, seed: int = 0, mu_scale: float = 0.0,
                     N: int = 10, qp_method: str = "pdip", pipeline: str = "hybrid",
                     warm_start_duals: bool = False, qp_iters: int = 12,
-                    step_reference: bool = True):
+                    step_reference: bool = True, n_basis: int = N_BASIS):
     """(solver, carry, x0, y_ref, rgp) of B scenarios.  The RGP posterior
     mean is mu_scale * N(0, 1) (0 in the benchmark).  Drawn in f64 and
     rounded to f32 whatever `dtype` is, so an f64 run sees the very inputs of
     the f32 one.  `qp_method`, `pipeline`, `warm_start_duals` and `qp_iters`
     go to the solver's ``MPCConfig``.  With `step_reference` False the
     reference is x0 at every node, as in the JAX package's phase split and
-    suite (``bench/phases.py:163-177``, ``bench/suite.py:25-42``)."""
+    suite (``bench/phases.py:163-177``, ``bench/suite.py:25-42``).  `n_basis`
+    RGP basis vectors per axis (20 is the ROS node's default)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     f64 = torch.float64
     p = hummingbird_params(dtype=torch.float32).map(lambda a: a.to(device, dtype))
@@ -41,9 +42,9 @@ def operating_point(B: int, device, dtype=torch.float32, seed: int = 0, mu_scale
     if step_reference:
         step = 1.0 + 4.0 * torch.rand((B, 1), generator=gen, dtype=f64)
         y_ref[:, :, 0] += torch.linspace(0, 1, N, dtype=f64)[None, :] * step
-    basis = torch.linspace(-10, 10, N_BASIS, dtype=f64).expand(B, 3, N_BASIS)
+    basis = torch.linspace(-10, 10, n_basis, dtype=f64).expand(B, 3, n_basis)
     rgp = rgp_init(basis, theta=(3.0, 0.1, 0.01))
-    rgp = rgp.replace(mu_g=mu_scale * torch.randn((B, 3, N_BASIS), generator=gen, dtype=f64))
+    rgp = rgp.replace(mu_g=mu_scale * torch.randn((B, 3, n_basis), generator=gen, dtype=f64))
     cast = lambda a: a.float().to(device, dtype)
     x0, y_ref, rgp = cast(x0), cast(y_ref), rgp.map(cast)
     return solver, init_carry(cfg, x0), x0, y_ref, rgp

@@ -212,23 +212,27 @@ def _bench_setup(B: int, device, **kw):
     return operating_point(B, device, step_reference=False, **kw)
 
 
-def chained_solves(solver, carry, x0, y_ref, rgp, chained: int):
-    """`chained` warm-started solves from `carry`: the last (carry,
+def chained_solves(solver, carry, x0, y_ref, rgp, chained: int, method: str = "solve_batch"):
+    """`chained` warm-started solves from `carry` through `method`
+    ("solve_batch", or "solve": the per-scenario path): the last (carry,
     solution)."""
+    solve = getattr(solver, method)
     sol = None
     for _ in range(chained):
-        carry, sol = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
+        carry, sol = solve(carry, x0, y_ref, y_ref[..., -1, :], rgp)
     return carry, sol
 
 
-def time_solves(solver, carry, x0, y_ref, rgp, chained: int, device, runs: int = 1):
-    """(seconds per batched solve in each of `runs` runs of `chained`
-    chained warm-started solves from `carry`, the last run's solution),
-    after one untimed solve.  Every chained timing of the harness and of
+def time_solves(solver, carry, x0, y_ref, rgp, chained: int, device, runs: int = 1,
+                method: str = "solve_batch"):
+    """(seconds per solve in each of `runs` runs of `chained` chained
+    warm-started solves from `carry`, the last run's solution), after one
+    untimed solve.  Every chained timing of the harness and of
     ``chip_smoke.py`` goes through here."""
-    chained_solves(solver, carry, x0, y_ref, rgp, 1)
+    chained_solves(solver, carry, x0, y_ref, rgp, 1, method)
     out = {}
-    run = lambda: out.update(sol=chained_solves(solver, carry, x0, y_ref, rgp, chained)[1])
+    run = lambda: out.update(sol=chained_solves(solver, carry, x0, y_ref, rgp, chained,
+                                                method)[1])
     times = [device_seconds(run, 1, device, warmup=False) / chained for _ in range(runs)]
     return times, out["sol"]
 

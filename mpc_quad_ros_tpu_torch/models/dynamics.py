@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.rotations import q_to_rot_mat, quaternion_derivative, quaternion_inverse, v_dot_q
+from ..utils.rotations import (q_to_rot_mat, quaternion_derivative, quaternion_inverse, unit_quat,
+                               v_dot_q)
 from .params import QuadParams
 
 
@@ -64,13 +65,31 @@ def f_with_drag(x: torch.Tensor, u: torch.Tensor, p: QuadParams) -> torch.Tensor
     return _f_core(x, u, p, v_dot_q(a_drag_body(x, p), x[..., 3:7]))
 
 
-def rk4_step(f, x: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
-    """Classic RK4 under a held control, no quaternion renormalisation."""
+def f_disturbed(x: torch.Tensor, u: torch.Tensor, p: QuadParams, f_d: torch.Tensor,
+                t_d: torch.Tensor) -> torch.Tensor:
+    """The drag plant with a body-frame force f_d and torque t_d (..., 3)."""
+    a_d_world = v_dot_q(a_drag_body(x, p) + f_d / p.mass[..., None], x[..., 3:7])
+    dx = _f_core(x, u, p, a_d_world)
+    return torch.cat([dx[..., :10], dx[..., 10:13] + t_d / p.J], dim=-1)
+
+
+def rk4_step(f, x: torch.Tensor, u: torch.Tensor, dt, normalize_quat: bool = False) -> torch.Tensor:
+    """Classic RK4 under a held control.  The quaternion is not renormalised
+    (reference parity) unless `normalize_quat`, for long free-running
+    rollouts."""
     k1 = f(x, u)
     k2 = f(x + dt / 2 * k1, u)
     k3 = f(x + dt / 2 * k2, u)
     k4 = f(x + dt * k3, u)
-    return x + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+    x_out = x + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+    if normalize_quat:
+        x_out = torch.cat([x_out[..., :3], unit_quat(x_out[..., 3:7]), x_out[..., 7:]], dim=-1)
+    return x_out
+
+
+def plant_step(x: torch.Tensor, u: torch.Tensor, p: QuadParams, dt) -> torch.Tensor:
+    """One RK4 step of the drag plant under the control clipped to [0, 1]."""
+    return rk4_step(lambda xx, uu: f_with_drag(xx, uu, p), x, u.clamp(0.0, 1.0), dt)
 
 
 def plant_substeps(x: torch.Tensor, u: torch.Tensor, p: QuadParams, dt,

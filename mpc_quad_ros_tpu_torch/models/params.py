@@ -1,13 +1,16 @@
 """Quadrotor physical parameters as a frozen record of tensors.
 
-Counterpart of ``mpc_quad_ros_tpu/models/params.py`` (``QuadParams``,
-``hummingbird_params``, ``randomize_params``).  Every field is a tensor so a
+Counterpart of ``mpc_quad_ros_tpu/models/params.py`` (``QuadParams``, the
+presets ``default_params``, ``default_v1_params``, ``hummingbird_params`` and
+``crazyflie_params`` with their ``payload`` argument, ``randomize_params``).
+``params_from_xacro`` is not ported.  Every field is a tensor so a
 leading (B,) axis can carry per-episode parameters.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -35,28 +38,49 @@ class QuadParams(Tensors):
         return self.mass * self.g[..., 2] / (4.0 * self.max_thrust)
 
 
-def hummingbird_params(dtype=torch.float32, device=None) -> QuadParams:
-    """RotorS hummingbird, '+' rotor configuration — the values of the JAX
-    package's preset (mass = body + 4 rotors, max_thrust = w_max^2 * k_m)."""
-    mass = 0.68 + 4 * 0.009
-    length = 0.17
-    c = 0.016
-    max_thrust = 838.0**2 * 8.54858e-6
-    values = dict(
-        mass=mass,
-        J=[0.007, 0.007, 0.012],
-        max_thrust=max_thrust,
-        x_f=[length, 0.0, -length, 0.0],
-        y_f=[0.0, length, 0.0, -length],
-        z_l_tau=[c, -c, c, -c],
-        g=[0.0, 0.0, 9.81],
-        aero_drag=0.008,
-        rotor_drag=[0.3, 0.3, 0.0],
-        rotor_functionality=[1.0, 1.0, 1.0, 1.0],
-        payload_mass=0.0,
-    )
+def _mk(values: dict, payload: bool, dtype, device) -> QuadParams:
+    """A preset: its own constants, and the gravity, drag, healthy rotors and
+    payload (0.3 kg with `payload`) every preset shares."""
+    values = dict(values, g=[0.0, 0.0, 9.81], aero_drag=0.008, rotor_drag=[0.3, 0.3, 0.0],
+                  rotor_functionality=[1.0, 1.0, 1.0, 1.0], payload_mass=0.3 if payload else 0.0)
     return QuadParams(**{k: torch.tensor(v, dtype=dtype, device=device)
                          for k, v in values.items()})
+
+
+def _plus_frame(length: float) -> dict:
+    """Rotor positions of the '+' configuration."""
+    return dict(x_f=[length, 0.0, -length, 0.0], y_f=[0.0, length, 0.0, -length])
+
+
+def default_params(dtype=torch.float32, device=None, payload: bool = False) -> QuadParams:
+    """The reference's default constants (mass 0.03 kg, arm 0.04 m)."""
+    return _mk(dict(mass=0.03, J=[0.03, 0.03, 0.06], max_thrust=20.0, **_plus_frame(0.04),
+                    z_l_tau=[-0.013, 0.013, -0.013, 0.013]), payload, dtype, device)
+
+
+def default_v1_params(dtype=torch.float32, device=None, payload: bool = False) -> QuadParams:
+    """The reference's earlier defaults (mass 1.0 kg, arm 0.235 m), which
+    some recorded simulation logs were made with."""
+    return _mk(dict(mass=1.0, J=[0.03, 0.03, 0.06], max_thrust=20.0, **_plus_frame(0.47 / 2),
+                    z_l_tau=[-0.013, 0.013, -0.013, 0.013]), payload, dtype, device)
+
+
+def hummingbird_params(dtype=torch.float32, device=None, payload: bool = False) -> QuadParams:
+    """RotorS hummingbird, '+' rotor configuration — the values of the JAX
+    package's preset (mass = body + 4 rotors, max_thrust = w_max^2 * k_m)."""
+    c = 0.016
+    return _mk(dict(mass=0.68 + 4 * 0.009, J=[0.007, 0.007, 0.012],
+                    max_thrust=838.0**2 * 8.54858e-6, **_plus_frame(0.17),
+                    z_l_tau=[c, -c, c, -c]), payload, dtype, device)
+
+
+def crazyflie_params(dtype=torch.float32, device=None, payload: bool = False) -> QuadParams:
+    """Crazyflie 2.0, 'x' rotor configuration."""
+    h = math.cos(math.pi / 4) * 0.04
+    c = 0.016
+    return _mk(dict(mass=0.027, J=[1.8e-5, 1.8e-5, 3.3e-5], max_thrust=0.3,
+                    x_f=[h, -h, -h, h], y_f=[-h, -h, h, h], z_l_tau=[-c, c, -c, c]),
+               payload, dtype, device)
 
 
 def randomize_params(base: QuadParams, n: int,

@@ -1,7 +1,10 @@
-"""Batched SQP-RTI nonlinear MPC over the quadrotor horizon.
+"""SQP-RTI nonlinear MPC over the quadrotor horizon.
 
-Counterpart of ``mpc_quad_ros_tpu/ops/sqp.py`` for ``solve_batch``, with two
-QP backends:
+Counterpart of ``mpc_quad_ros_tpu/ops/sqp.py``: the batched ``solve_batch``
+and the per-scenario ``solve``.
+
+``solve_batch`` (B scenarios through the batched kernels), with two QP
+backends:
 
 - ``qp_method="pdip"``: the condensed primal-dual interior point, through
   one of three pipelines (``MPCConfig.pipeline``) that compute the same
@@ -12,8 +15,8 @@ QP backends:
     condensing, IPM, KKT, dX);
   - "split" (``_gn_step_batch_tiled``): kernel A, the glue, kernel D
     (``ops/cuda/condense_kernel.py``: H, g, M, d), kernel E
-    (``ops/cuda/qp_kernel.py``: the IPM), then the KKT and X + d + M z in
-    plain tensor code;
+    (``ops/cuda/qp_kernel.py``: the Jacobi-scaled IPM), then the KKT and
+    X + d + M z in plain tensor code;
   - "fused" (``_gn_step_batch_fused``): kernel F
     (``ops/cuda/sqp_fused_kernel.py``: the whole step in one kernel).
   With ``warm_start_duals`` the IPM starts from the duals of the previous
@@ -26,6 +29,8 @@ QP backends:
 - ``qp_method="auto"`` takes "pdip" below ``AUTO_RICCATI_MIN_N`` and
   "riccati" from there; "pdip" past ``FUSED_N_MAX`` warns and takes
   "riccati", whatever the pipeline.
+- "projected_newton" and ``shift_warm_start`` raise: the JAX
+  ``solve_batch`` silently runs pdip for the one and ignores the other.
 
 Any batch size B is taken as it is.  Below ``SMALL_BATCH`` scenarios the
 condensed methods take the small-batch step (``_gn_step_batch_soa``)
@@ -33,14 +38,27 @@ whatever the pipeline, as the JAX package's ``solve_batch`` does: the
 "split" step with kernel J (``ops/cuda/condense_kernel.py``: condensing fed
 the A and B blocks of kernel A's J) in place of kernel D.
 
+``solve`` runs the JAX package's per-scenario algorithm (its ``solve``, or
+``vmap`` of it) on one scenario, x0 (13,), or on B, x0 (B, 13):
+``shift_warm_start`` shifts the carry one stage, then each Gauss-Newton step
+(``_step_per_scenario``) is kernel A, kernel J below ``SMALL_BATCH`` or
+kernel D from there, the QP in plain tensor code (``ops/qp.py``: the
+unscaled IPM for "pdip", or "projected_newton"), the KKT and the update —
+the "split" step with another QP (``_gn_step_condensed``).  "riccati" is the
+batched Riccati step.  "auto" switches at ``AUTO_RICCATI_MIN_N`` too (the
+JAX package's per-scenario path at 32, where this path's f32 IPM has lost
+every scenario), and a dense-H method past ``FUSED_N_MAX`` warns and takes
+"riccati" here too.
+
 Cost: LINEAR_LS with W = diag(q_pos, q_quat, q_vel, q_rate, r) and the
-reference's quaternion-weight mean quirk; stage cost x dt, terminal cost
-unscaled; u in [u_lb, u_ub].
+reference's quaternion-weight mean quirk; stage cost x dt (x 1 without
+``scale_stage_by_dt``), terminal cost unscaled; u in [u_lb, u_ub].
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Callable
 
@@ -56,7 +74,7 @@ from .cuda.lin_kernel import linearize, model_constants
 from .cuda.qp_kernel import solve_box_qp_pdip_batch
 from .cuda.riccati_kernel import riccati_ipm_from_J
 from .cuda.sqp_fused_kernel import fused_sqp_from_J, fused_sqp_step
-from .qp import qp_kkt_residual
+from .qp import qp_kkt_residual, solve_box_qp_pdip, solve_box_qp_projected_newton
 
 # The condensed kernels' ceiling, the JAX package's FUSED_N_MAX
 # (mpc_quad_ros_tpu/ops/sqp.py:67).  Kernels B and F are built for nz = 4 N
@@ -68,7 +86,7 @@ from .qp import qp_kkt_residual
 # method falls back to the Riccati backend, whatever the pipeline.  A
 # constant, so the CPU and the card dispatch alike.
 FUSED_N_MAX = 40
-DENSE_H_METHODS = ("pdip",)
+DENSE_H_METHODS = ("pdip", "projected_newton")
 PIPELINES = ("hybrid", "split", "fused")
 # "auto" takes the Riccati backend from this horizon on.  Measured with
 # bench/crossover.py on an NVIDIA H100 80GB HBM3 at 700 W, B=16384, nodes
@@ -77,6 +95,11 @@ PIPELINES = ("hybrid", "split", "fused")
 # from N=16 on its f32 IPM returns non-finite controls for part of the batch
 # (0.4 % at N=16, 10 % at N=18, 39 % at N=20, none at N=10-14), and the
 # Riccati step for none.
+# The per-scenario ``solve`` switches here too, not at the JAX package's 32
+# (``AUTO_RICCATI_MIN_N_XLA``, ``mpc_quad_ros_tpu/ops/sqp.py:60``): on the
+# same card, B=16384, its f32 unscaled IPM returns non-finite controls for
+# 0.62 % of the scenarios at N=16, 71 % at N=20, 99.4 % at N=24 and all at
+# N=28 and 31 (``bench/crossover.py::per_scenario_row``).
 AUTO_RICCATI_MIN_N = 16
 # Batches below this take the small-batch step, the JAX package's lane-major
 # route for B < 128 (``mpc_quad_ros_tpu/ops/sqp.py:899, 946-947``): its
@@ -96,8 +119,14 @@ class MPCConfig:
     u_ref: float = 0.16          # hover reference control
     sqp_iters: int = 1           # 1 == RTI
     qp_iters: int = 12
-    qp_method: str = "pdip"      # "pdip" | "riccati" | "auto"
-    pipeline: str = "hybrid"     # "hybrid" | "split" | "fused" (condensed methods)
+    qp_method: str = "pdip"      # "pdip" | "projected_newton" (solve only) | "riccati" | "auto"
+    # Shift the warm start one stage a tick (``solve`` only; solve_batch
+    # raises): off matches acados' plain primal warm start.
+    shift_warm_start: bool = False
+    # Stage cost x dt, as acados integrates the LINEAR_LS term over each
+    # shooting interval; False gives an unscaled discrete sum.
+    scale_stage_by_dt: bool = True
+    pipeline: str = "hybrid"     # "hybrid" | "split" | "fused" (solve_batch's condensed methods)
     # Carry the IPM duals (zl, zu) across solves and warm-start the QP from
     # them.  Off by default, as in the JAX package: it halves the
     # factorisations on near-steady chains and loses on fast transients.
@@ -109,8 +138,9 @@ class MPCConfig:
 
     @property
     def stage_scale(self) -> float:
-        """The stage cost is integrated over the shooting interval."""
-        return self.dt
+        """The stage cost is integrated over the shooting interval (dt), or
+        summed (1) without `scale_stage_by_dt`."""
+        return self.dt if self.scale_stage_by_dt else 1.0
 
     def q_diagonal(self, dtype=torch.float64, device=None) -> torch.Tensor:
         """12 Euler-style weights -> 13 quaternion-state weights: the mean
@@ -149,13 +179,17 @@ class MPCSolution(Tensors):
                                 # ("pdip"), of the rollout cost ("riccati")
 
 
-def init_carry(cfg: MPCConfig, x0: torch.Tensor) -> SolverCarry:
-    """Every node at x0, every control at u_ref; x0 (..., 13).  With
-    `warm_start_duals`, unit duals: the IPM's cold-start value, so the first
-    solve is a (floored) cold start."""
+def init_carry(cfg: MPCConfig, x0: torch.Tensor, u0: torch.Tensor | None = None) -> SolverCarry:
+    """Every node at x0, every control at u0 (4,) or (..., 4), u_ref when
+    None; x0 (..., 13).  With `warm_start_duals`, unit duals: the IPM's
+    cold-start value, so the first solve is a (floored) cold start."""
     N = cfg.n_nodes
     X = x0[..., None, :].expand(x0.shape[:-1] + (N + 1, 13)).clone()
-    U = torch.full(x0.shape[:-1] + (N, 4), cfg.u_ref, dtype=x0.dtype, device=x0.device)
+    if u0 is None:
+        U = torch.full(x0.shape[:-1] + (N, 4), cfg.u_ref, dtype=x0.dtype, device=x0.device)
+    else:
+        u0 = torch.as_tensor(u0, dtype=x0.dtype, device=x0.device)
+        U = u0[..., None, :].expand(x0.shape[:-1] + (N, 4)).clone()
     zl = zu = None
     if cfg.warm_start_duals:
         zl = torch.ones(x0.shape[:-1] + (N * 4,), dtype=x0.dtype, device=x0.device)
@@ -202,15 +236,19 @@ class SQPSolver:
             self._lin_consts = model_constants(self.f.params, self.cfg.dt)
         return linearize(X, U, aug, self.f, self.cfg.dt, self._lin_consts)
 
-    def _resolve_qp_method(self) -> str:
-        """The QP backend of this configuration: "auto" by the measured
-        crossover; a dense-H method past the condensed kernels' ceiling
-        (FUSED_N_MAX) falls back to "riccati" with a warning."""
+    def _resolve_qp_method(self, tiled: bool = True) -> str:
+        """The QP backend of this configuration, for ``solve_batch``
+        (`tiled`, which raises on "projected_newton") or the per-scenario
+        ``solve``.  "auto" switches to "riccati" at AUTO_RICCATI_MIN_N; a
+        dense-H method past the condensed kernels' ceiling (FUSED_N_MAX,
+        which kernels D's and J's packed H set for ``solve`` too) falls back
+        to "riccati" with a warning."""
         m, N = self.cfg.qp_method, self.cfg.n_nodes
-        if m == "projected_newton":
-            raise NotImplementedError("qp_method='projected_newton' is not ported yet "
-                                      "(ROADMAP queue 1, item 9)")
-        if m not in ("pdip", "riccati", "auto"):
+        if m == "projected_newton" and tiled:
+            raise NotImplementedError(
+                "qp_method='projected_newton' runs in the per-scenario SQPSolver.solve; "
+                "solve_batch has no batched projected Newton (ROADMAP queue 3)")
+        if m not in ("pdip", "projected_newton", "riccati", "auto"):
             raise ValueError(f"unknown qp_method {m!r}")
         if m == "auto":
             return "pdip" if N < AUTO_RICCATI_MIN_N else "riccati"
@@ -244,24 +282,43 @@ class SQPSolver:
         in plain tensor code, as the JAX split step leaves them to XLA.
         `from_AB` splits J into its A and B blocks and condenses them with
         kernel J in place of kernel D."""
-        cfg = self.cfg
-        warm = self._warm(zl)
+        return self._gn_step_condensed(X, U, zl, zu, x0, y_ref, y_ref_N, aug, from_AB,
+                                       self._qp_kernel_e)
+
+    def _gn_step_condensed(self, X, U, zl, zu, x0, y_ref, y_ref_N, aug, from_AB, qp):
+        """Kernel A, the glue, kernel D or (`from_AB`) kernel J, g += gu, then
+        `qp` (H, g, lb, ub, zl, zu) -> (z, zl, zu), the KKT and the update."""
         xp, J = self._linearize(X, U, aug)
         r, dx0, ex0, gu, lb, ub = self.qp_inputs(X, U, x0, y_ref, y_ref_N, xp)
+        w = self.cfg.weight_tuples()
         if from_AB:
             A, Bm = (a.contiguous() for a in split_AB(J))
-            H, g, M, d = condense_cost_from_AB(A, Bm, r, dx0, ex0, *cfg.weight_tuples())
+            H, g, M, d = condense_cost_from_AB(A, Bm, r, dx0, ex0, *w)
         else:
-            H, g, M, d = condense_cost_from_J(J, r, dx0, ex0, *cfg.weight_tuples())
+            H, g, M, d = condense_cost_from_J(J, r, dx0, ex0, *w)
         g = g + gu
-        z, zl_n, zu_n = solve_box_qp_pdip_batch(H, g, lb, ub, cfg.qp_iters,
-                                                *((zl, zu) if warm else (None, None)))
-        if warm:
-            zl, zu = zl_n, zu_n
+        z, zl, zu = qp(H, g, lb, ub, zl, zu)
         kkt = qp_kkt_residual(H, g, lb, ub, z)
         B = X.shape[0]
         dX = d + (M.reshape(B, -1, M.shape[-1]) @ z[..., None]).reshape(d.shape)
         return X + dX, U + z.reshape(U.shape), zl, zu, kkt
+
+    def _qp_kernel_e(self, H, g, lb, ub, zl, zu):
+        """Kernel E, the Jacobi-scaled IPM: warm from the carried duals with
+        `warm_start_duals`, else cold with the duals passed through."""
+        if not self._warm(zl):
+            return solve_box_qp_pdip_batch(H, g, lb, ub, self.cfg.qp_iters)[0], zl, zu
+        return solve_box_qp_pdip_batch(H, g, lb, ub, self.cfg.qp_iters, zl, zu)
+
+    def _qp_unscaled(self, H, g, lb, ub, zl, zu):
+        """The per-scenario QP of the JAX ``_gn_step``: the unscaled IPM, warm
+        from the carried duals with `warm_start_duals`."""
+        if not self._warm(zl):
+            return solve_box_qp_pdip(H, g, lb, ub, self.cfg.qp_iters), zl, zu
+        return solve_box_qp_pdip(H, g, lb, ub, self.cfg.qp_iters, zl, zu, return_duals=True)
+
+    def _qp_projected_newton(self, H, g, lb, ub, zl, zu):
+        return solve_box_qp_projected_newton(H, g, lb, ub, self.cfg.qp_iters), zl, zu
 
     def _gn_step_batch_soa(self, X, U, zl, zu, x0, y_ref, y_ref_N, aug):
         """The small-batch step (B < SMALL_BATCH, every pipeline): the JAX
@@ -353,21 +410,53 @@ class SQPSolver:
 
     def solve_batch(self, carry: SolverCarry, x0: torch.Tensor, y_ref: torch.Tensor,
                     y_ref_N: torch.Tensor, aug=None) -> tuple[SolverCarry, MPCSolution]:
-        """One MPC solve for each of B scenarios.
+        """One MPC solve for each of B scenarios, through the batched kernels.
 
         carry   : warm-started (X (B, N+1, 13), U (B, N, 4)) and, with
                   `warm_start_duals`, the IPM duals zl, zu (B, N*4)
         x0      : (B, 13) measured states
         y_ref   : (B, N, 13) stage references;  y_ref_N : (B, 13) terminal
         aug     : per-scenario RGPState (B, 3, ...) / FoldedDrag, or None
-        """
+
+        `shift_warm_start` raises: the JAX ``solve_batch`` silently ignores
+        it, and this one does not shift either."""
+        if self.cfg.shift_warm_start:
+            raise ValueError("shift_warm_start is read by SQPSolver.solve only; solve_batch "
+                             "does not shift the warm start (ROADMAP queue 3)")
+        return self._iterate(self._step(x0.shape[0]), carry, x0, y_ref, y_ref_N, aug)
+
+    def solve(self, carry: SolverCarry, x0: torch.Tensor, y_ref: torch.Tensor,
+              y_ref_N: torch.Tensor, aug=None) -> tuple[SolverCarry, MPCSolution]:
+        """The per-scenario MPC solve, the JAX package's ``solve`` (its
+        algorithm under ``vmap`` for leading-(B,) inputs): the carry shifted
+        one stage with `shift_warm_start`, then `sqp_iters` Gauss-Newton
+        steps of ``_step_per_scenario``.
+
+        x0 (13,) with carry (N+1, 13), (N, 4), y_ref (N, 13), y_ref_N (13,)
+        and aug (3, ...) solves one scenario and returns the same ranks;
+        x0 (B, 13) with the shapes of ``solve_batch`` solves B."""
+        if x0.dim() == 1:
+            one = lambda a: a[None]
+            aug = None if aug is None else fold_drag(aug).map(one)
+            carry, sol = self.solve(carry.map(one), one(x0), one(y_ref), one(y_ref_N), aug)
+            first = lambda a: a[0]
+            return carry.map(first), sol.map(first)
+        step = self._step_per_scenario(x0.shape[0])
+        if self.cfg.shift_warm_start:
+            shift = lambda a, k: None if a is None else torch.cat([a[:, k:], a[:, -k:]], 1)
+            carry = SolverCarry(X=shift(carry.X, 1), U=shift(carry.U, 1),
+                                zl=shift(carry.zl, 4), zu=shift(carry.zu, 4))
+        return self._iterate(step, carry, x0, y_ref, y_ref_N, aug)
+
+    def _iterate(self, step, carry, x0, y_ref, y_ref_N, aug) -> tuple[SolverCarry, MPCSolution]:
+        """`sqp_iters` applications of `step` from the carry, then the cost;
+        the KKT residual is the last step's."""
         aug = fold_drag(aug)
         if aug is not None:
             aug = aug.map(lambda a: a.contiguous())
         carry = carry.map(lambda a: a.contiguous())
         X, U, zl, zu = carry.X, carry.U, carry.zl, carry.zu
         x0, y_ref, y_ref_N = x0.contiguous(), y_ref.contiguous(), y_ref_N.contiguous()
-        step = self._step(X.shape[0])
         kkt = None
         for _ in range(self.cfg.sqp_iters):
             X, U, zl, zu, kkt = step(X, U, zl, zu, x0, y_ref, y_ref_N, aug)
@@ -376,7 +465,7 @@ class SQPSolver:
                 MPCSolution(X=X, U=U, cost=cost, kkt_residual=kkt))
 
     def _step(self, B: int):
-        """The Gauss-Newton step of this configuration at batch B: by the QP
+        """The Gauss-Newton step of ``solve_batch`` at batch B: by the QP
         backend, then, for the condensed methods, the small-batch step below
         SMALL_BATCH and the pipeline's from there.  An unknown pipeline
         raises (the JAX package falls back to "split")."""
@@ -389,6 +478,17 @@ class SQPSolver:
             return self._gn_step_batch_soa
         return {"hybrid": self._gn_step_batch_hybrid, "split": self._gn_step_batch_tiled,
                 "fused": self._gn_step_batch_fused}[pipeline]
+
+    def _step_per_scenario(self, B: int):
+        """The Gauss-Newton step of ``solve`` at batch B, the JAX ``_gn_step``:
+        kernels A and C and the line search for "riccati"; else kernel A,
+        kernel J below SMALL_BATCH or kernel D from there, then the unscaled
+        IPM or projected Newton in tensor code, the KKT and the update."""
+        method = self._resolve_qp_method(tiled=False)
+        if method == "riccati":
+            return self._gn_step_batch_riccati
+        qp = self._qp_unscaled if method == "pdip" else self._qp_projected_newton
+        return functools.partial(self._gn_step_condensed, from_AB=B < SMALL_BATCH, qp=qp)
 
     def ls_cost(self, X, U, y_ref, y_ref_N) -> torch.Tensor:
         """LINEAR_LS cost of each trajectory (leading dims kept)."""

@@ -1,7 +1,7 @@
 """Quaternion / rotation algebra on tensors (wxyz, scalar first).
 
 Counterpart of ``mpc_quad_ros_tpu/utils/rotations.py``; only what the MPC
-solve and the closed loop use.  Every function broadcasts over leading dims.
+solve, the closed loop and the plant use.  Every function broadcasts over leading dims.
 """
 
 from __future__ import annotations
@@ -45,3 +45,8 @@ def quaternion_derivative(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def unit_quat(q: torch.Tensor) -> torch.Tensor:
+    """q scaled to unit modulus."""
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
