@@ -37,21 +37,34 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    B=1024 ("pdip" and "projected_newton" at N=10, "riccati" at N=40) and
    ``solve_batch`` at the ROS shapes (N=5; 20 basis vectors a axis) against
    their f64 CPU solves, with NaN isolation; the per-scenario f32 IPM's lost
-   scenarios from N=16 to 31 (B=16384); one episode on the CPU in f64, the
-   reference of phase 9's episode;
+   scenarios from N=16 to 31 (B=16384); one episode on the CPU in f64 (50
+   ticks), the reference of phase 9's episode; then the gp1 workflow
+   (``bench/gp1_workflow.py``): the gp0 training flight of the closed loop's
+   fleet (16384 x 100 ticks, fused loop), episode 0's log, ``DataLoaderGP``,
+   the fit (``train_gp``, float64 on the card) saved and read back bitwise,
+   the offline RGP (``train_rgp``, 50 samples of ``rgp_learn``) against its
+   float64 run on the CPU, and ``solve_batch`` with the fitted GP at the solve
+   cell's operating point (B=1024) against the f64 solve on the CPU (kernel
+   B's rules, NaN isolation, kernel A's rule; the float32 fold's drag error
+   reported);
 8. the N=10 slice: ``SQPSolver.solve_batch`` at B=65536, 20 chained
    warm-started solves (solves/s), one-scenario latency through the
    small-batch step, kernels A, J and E (p50/p99 of 20 runs of 50 chained
    solves, CUDA events);
 9. the closed learning loop: 16384 episodes x 100 ticks on the accelerating
    circle at 8 m/s (tick-solves/s, tracking error from tick 30 on); then the
-   per-scenario paths: ``run_episode`` for one hummingbird, 100 ticks, each
+   per-scenario paths: ``run_episode`` for one hummingbird, 50 ticks, each
    tick timed (p50/p99), and one scenario's ``solve`` alone (kernels A and
    J); ``run_episode_batch`` on the closed loop's scenario (kernels A and
    D); the fused loop on a heterogeneous batch of 16384 (v_max 4, 8, 12
    m/s; ``traj_len``, ``episode_ticks``: finished episodes stay bitwise
    frozen) and 10 ticks with ``control_skip`` = 10 on a trajectory sampled
-   10x finer (bitwise the run on its every tenth sample);
+   10x finer (bitwise the run on its every tenth sample); then the fitted
+   GP (gp1) through the fused loop on the closed loop's fleet at 16384 x 100
+   ticks (kernels A and B; the fitted drone's error below ERR_MEAN_TOL, the
+   fleet's below the gp0 flight's) and through ``run_episode_batch`` at
+   B=1024, 30 ticks (kernels A and D; its error within 10 % of the fused
+   loop's on the same episodes);
 10. the "split" and "fused" slices: the N=10 slice's chained solves through
     kernels A, D, E and through kernel F alone;
 11. the warm-dual regulation chain (``bench/regulation.py``) at B=65536, 40
@@ -88,10 +101,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
     glue, kernel C, ``_riccati_finish``) and whole;
 20. ``bench/headline.py::measure`` without the closed loop (phase 9 runs it).
 
-The launch counters are reset just before each path (phases 8-9 with the
-episode, the episode batch and the heterogeneous batch each a path of its
-own, 10 split, 10 fused, 11, 12, and the measured parts of 14-20) and read
-just after; each
+The launch counters are reset just before each path (the gp1 workflow's
+training path in 7, phases 8-9 with the episode, the episode batch, the
+heterogeneous batch and the two gp1 flights each a path of its own, 10
+split, 10 fused, 11, 12, and the measured parts of 14-20) and read just
+after; each
 path must have launched its kernels and no other.  Every chained solve is
 timed by ``bench/phases.py::time_solves``.  The plain versions are
 fenced off on those paths.  The line before the last lists every kernel with
@@ -115,15 +129,15 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from mpc_quad_ros_tpu_torch.bench import (bounds, headline, per_scenario, phases,  # noqa: E402
-                                           probe_hybrid, suite)
+from mpc_quad_ros_tpu_torch.bench import (bounds, gp1_workflow, headline,  # noqa: E402
+                                           per_scenario, phases, probe_hybrid, suite)
 from mpc_quad_ros_tpu_torch.bench.closed_loop import (closed_loop, hetero_closed_loop,  # noqa: E402
                                                       skip_closed_loop)
 from mpc_quad_ros_tpu_torch.bench.crossover import crossover_row, per_scenario_row  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.operating_point import N_BASIS, operating_point  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.regulation import regulation_chain, regulation_setup  # noqa: E402
-from mpc_quad_ros_tpu_torch.models import (fold_drag, hummingbird_params,  # noqa: E402
-                                           make_mpc_dynamics, rgp_init)
+from mpc_quad_ros_tpu_torch.models import (fold_drag, gp_mean_world,  # noqa: E402
+                                           hummingbird_params, make_mpc_dynamics, rgp_init)
 from mpc_quad_ros_tpu_torch.ops import qp_kkt_residual, sqp  # noqa: E402
 from mpc_quad_ros_tpu_torch.ops.cuda import (_build, condense_kernel, lin_kernel,  # noqa: E402
                                              qp_kernel, riccati_kernel, sqp_fused_kernel)
@@ -221,6 +235,17 @@ RICCATI_WARPS_BEFORE = 11
 # Kernel D's resident warps per SM at N = 10 must pass the ~11 that J staged
 # whole and H as a full nz x (nz + 1) matrix allowed (19,824 B a block).
 CONDENSE_WARPS_BEFORE = 11
+# The gp1 workflow: the offline RGP's float64 run on the card against the
+# CPU's, relative to the largest entry (the same algorithm; cuSOLVER's
+# inverses and eigendecompositions against LAPACK's, over 99 and 50 steps).
+OFFLINE_REL_TOL = 1e-9
+# gp1 through run_episode_batch: B scenarios for T seconds (30 ticks), the
+# error from tick 10 on, held against the fused loop's on the same episodes.
+GP1_EPISODE_B, GP1_EPISODE_T, GP1_ERR_FROM = 1024, 3.0, 10
+# the one drone's episode, on the card and its CPU f64 reference: 5 s (50
+# ticks, the error from tick 30 on)
+EPISODE_T_MAX = 5.0
+GP1_DIR = pathlib.Path(__file__).resolve().parent / "build" / "gp1_workflow"
 T0 = time.perf_counter()
 
 
@@ -1061,7 +1086,7 @@ def phase_per_scenario_auto_range(device) -> None:
 def phase_episode_cpu_f64() -> dict:
     """The single episode on the CPU in f64, the card episode's reference
     (run before the card paths, whose plain versions are fenced off)."""
-    ep = per_scenario.episode("cpu", torch.float64)
+    ep = per_scenario.episode("cpu", torch.float64, t_max=EPISODE_T_MAX)
     emit("episode_cpu_f64", **ep)
     check(ep["finite"] and ep["err_mean_m"] < ERR_MEAN_TOL, f"episode on the CPU: {ep}")
     return ep
@@ -1071,7 +1096,7 @@ def phase_episode(device, ref: dict) -> dict:
     """``run_episode`` for one hummingbird in f32, a tick a call (the tick's
     wall time), then one scenario's ``solve`` alone (CUDA events): kernels A
     and J, the unscaled IPM in tensor code."""
-    ep = per_scenario.episode(device)
+    ep = per_scenario.episode(device, t_max=EPISODE_T_MAX)
     lat = per_scenario.solve_latency(device)
     rel = abs(ep["err_mean_m"] - ref["err_mean_m"]) / ref["err_mean_m"]
     emit("episode", **ep, solve_p50_ms=lat["solve_p50_ms"], solve_p99_ms=lat["solve_p99_ms"],
@@ -1134,6 +1159,135 @@ def phase_closed_loop(device) -> dict:
     check(math.isfinite(cl["err_mean_m"]) and math.isfinite(cl["err_p95_m"]),
           f"closed loop: non-finite error {cl}")
     check(cl["err_mean_m"] < ERR_MEAN_TOL, f"closed loop: err_mean_m {cl['err_mean_m']} >= {ERR_MEAN_TOL}")
+    return cl
+
+
+def gp1_aug(gp, B: int, dtype, device):
+    """The gp1 state folded in its own float64, cast to `dtype` on `device`
+    (the kernels take float32) and broadcast to B scenarios."""
+    return fold_drag(gp).map(lambda a: a.to(device, dtype).expand((B,) + a.shape).contiguous())
+
+
+def phase_gp1_training(device) -> dict:
+    """gp1_workflow, steps 1-3 and 7: the gp0 training flight of the closed
+    loop's fleet (fused loop), episode 0's log, ``DataLoaderGP``, the fit
+    (``train_gp``, float64 on the card) saved and read back, then the
+    offline RGP (``train_rgp`` and ``rgp_learn``) on the card and on the
+    CPU in float64."""
+    GP1_DIR.mkdir(parents=True, exist_ok=True)
+    gp0, log_path = gp1_workflow.training_flight(CLOSED_B, str(GP1_DIR), device)
+    emit("gp1_training_flight", **gp0, log=os.path.relpath(log_path, GP1_DIR.parents[1]))
+    check(math.isfinite(gp0["err_mean_m"]) and math.isfinite(gp0["err_p95_m"]),
+          f"gp1 training flight: non-finite error {gp0}")
+    gpe, fitted = gp1_workflow.fit(log_path, str(GP1_DIR / "gp1"), device)
+    emit("gp1_fit", **fitted)
+    check(fitted["reloaded_bitwise"], "gp1 fit: the model files do not reload to the fitted state")
+    check(torch.isfinite(gpe.state.alpha).all() and torch.isfinite(gpe.state.K_inv).all(),
+          f"gp1 fit: non-finite state {fitted}")
+    rgp = gp1_workflow.offline_rgp(log_path, str(GP1_DIR), device)
+    emit("gp1_offline_rgp", **rgp, tol_rel=OFFLINE_REL_TOL)
+    check(rgp["finite"], f"offline RGP: non-finite state {rgp}")
+    check(rgp["train_rgp_rel_vs_cpu"] <= OFFLINE_REL_TOL and rgp["rgp_learn_rel_vs_cpu"] <= OFFLINE_REL_TOL,
+          f"offline RGP: the card's float64 run is off the CPU's {rgp}")
+    return {"gp": gpe.state, "gp0": gp0, "fit": fitted, "offline_rgp": rgp}
+
+
+def phase_gp1_solve(device, gp) -> None:
+    """gp1_workflow, step 4: ``solve_batch`` at the solve cell's operating
+    point, B=1024, with the fitted GP (folded in float64, cast to float32)
+    for the drag, against the f64 solve on the CPU (kernel B's rules), NaN
+    isolation; kernel A at the solution against its f64 plain version on the
+    same float32 weights (``phase_kernel_a``'s rule, or this data's float32
+    floor where that is higher), and the drag mean and x+ against the f64
+    plain version at the fitted float64 state (reported: the float32 fold's
+    error)."""
+    solver, carry0, x0, y_ref, _ = operating_point(PER_SCENARIO_B, device, mu_scale=0.3)
+    aug = gp1_aug(gp, PER_SCENARIO_B, torch.float32, device)
+    carry, sol = solver.solve_batch(carry0, x0, y_ref, y_ref[:, -1], aug)
+    s64, c64, x64, y64, _ = operating_point(PER_SCENARIO_B, "cpu", torch.float64, mu_scale=0.3)
+    _, ref = s64.solve_batch(c64, x64, y64, y64[:, -1], gp1_aug(gp, PER_SCENARIO_B, torch.float64, "cpu"))
+    st = solve_stats(sol, ref)
+    bad = 7
+    x_bad = x0.clone()
+    x_bad[bad, 8] = float("nan")
+    _, sol_bad = solver.solve_batch(carry0, x_bad, y_ref, y_ref[:, -1], aug)
+    st["nan_isolated"] = isolated(bad, (sol.U, sol.X, sol.cost, sol.kkt_residual),
+                                  (sol_bad.U, sol_bad.X, sol_bad.cost, sol_bad.kkt_residual))
+    st["finite"] = bool(torch.isfinite(sol.U).all() and torch.isfinite(sol.X).all())
+
+    f, dt = solver.f, solver.cfg.dt
+    X, U = carry.X, carry.U
+    f64 = make_mpc_dynamics(f.params.map(lambda a: a.double()))
+    aug64 = gp1_aug(gp, PER_SCENARIO_B, torch.float64, device)
+    xp, J = lin_kernel.linearize(X, U, aug, f, dt)
+    xp_p, J_p = lin_kernel.linearize_plain(f, X, U, aug, dt)
+    xp_d, J_d = lin_kernel.linearize_plain(f64, X.double(), U.double(), aug.map(lambda a: a.double()), dt)
+    xp_t, _ = lin_kernel.linearize_plain(f64, X.double(), U.double(), aug64, dt)
+    per_stage = lambda a: a[:, None]
+    mean32 = gp_mean_world(X, aug.map(per_stage))
+    mean64 = gp_mean_world(X.double(), aug64.map(per_stage))
+    err = lambda a, b: (a.double() - b.double()).abs().max().item()
+    lin = {"xp_vs_f64": err(xp, xp_d), "J_vs_f64": err(J, J_d),
+           "xp_plain_vs_f64": err(xp_p, xp_d), "J_plain_vs_f64": err(J_p, J_d),
+           "xp_vs_plain": err(xp, xp_p), "J_vs_plain": err(J, J_p),
+           "xp_vs_f64_fitted_state": err(xp, xp_t),
+           "drag_mean_abs_max": mean64.abs().max().item(),
+           "drag_mean_vs_f64_fitted_state": err(mean32, mean64)}
+    # kernel A's rule, or the float32 floor of these inputs where it is
+    # higher: the fitted GP's drag reaches ~70 m/s^2 as a sum of terms of
+    # alternating sign, so float32 rounds it by more than kernel A's
+    # tolerances; the f32 plain version's error against the same f64
+    # measures that floor, and the kernel, another order of the same
+    # operations, may reach twice it
+    tol_xp = max(LIN_XP_TOL, 2 * lin["xp_plain_vs_f64"])
+    tol_J = max(LIN_J_TOL, 2 * lin["J_plain_vs_f64"])
+    emit("gp1_solve_vs_cpu_f64", B=PER_SCENARIO_B, **st, **{f"kernel_a_{k}": v for k, v in lin.items()},
+         tol_z=QP_Z_TOL, tol_kkt=QP_KKT_TOL, tol_xp=tol_xp, tol_J=tol_J)
+    check(st["finite"], f"gp1 solve: non-finite output {st}")
+    check(st["nan_isolated"], "gp1 solve: a NaN scenario changed another scenario's outputs")
+    check_qp("gp1 solve", st)
+    check(lin["xp_vs_f64"] <= tol_xp, f"gp1 kernel A xp: {lin}")
+    check(lin["J_vs_f64"] <= tol_J, f"gp1 kernel A J: {lin}")
+
+
+def phase_gp1_flight(device, gp, gp0: dict, gp2: dict) -> dict:
+    """gp1_workflow, step 5: the fitted GP through the fused loop on the
+    closed loop's fleet at full width (16384 x 100 ticks), beside the gp0
+    training flight and the gp2 closed loop of this run.  Episode 0 is the
+    drone the GP was fitted to: its error is held to ERR_MEAN_TOL; the other
+    drones' drag is 0.5-2x its own, so the fleet is held to beat gp0."""
+    cl, outs = closed_loop(B=CLOSED_B, v=8.0, t_max=10.0, device=device, drag=gp, outputs=True)
+    err0 = (outs.x_odom[0, 30:, :3] - outs.x_ref[0, 30:, :3]).double().norm(dim=-1).mean().item()
+    u = outs.w_odom
+    cl.update(err_mean_m_episode0=err0, u_min=u.min().item(), u_max=u.max().item())
+    emit("gp1_closed_loop", **cl, gp0_tick_solves_per_s=gp0["tick_solves_per_s"],
+         gp0_err_mean_m=gp0["err_mean_m"], gp0_err_p95_m=gp0["err_p95_m"],
+         gp2_tick_solves_per_s=gp2["tick_solves_per_s"], gp2_err_mean_m=gp2["err_mean_m"],
+         gp2_err_p95_m=gp2["err_p95_m"], tol_err=ERR_MEAN_TOL)
+    check(math.isfinite(cl["err_mean_m"]) and math.isfinite(cl["err_p95_m"])
+          and bool(torch.isfinite(outs.x_odom).all()), f"gp1 closed loop: non-finite {cl}")
+    check(cl["u_min"] >= -U_BOX_SLACK and cl["u_max"] <= 1 + U_BOX_SLACK,
+          f"gp1 closed loop: controls left the box {cl}")
+    check(err0 < ERR_MEAN_TOL, f"gp1 closed loop: the fitted drone's error {err0} >= {ERR_MEAN_TOL}")
+    check(cl["err_mean_m"] < gp0["err_mean_m"],
+          f"gp1 closed loop: the fleet's error {cl['err_mean_m']} is not below gp0's {gp0['err_mean_m']}")
+    return cl
+
+
+def phase_gp1_episode_batch(device, gp, fused: dict) -> dict:
+    """gp1_workflow, step 6: ``run_episode_batch`` (the per-scenario solve,
+    kernels A and D) in gp1 at B=1024 for 30 ticks, against the fused loop's
+    run of the same episodes (`fused`, made before the counters were reset):
+    the tracking error from tick 10 within EPISODE_ERR_REL_TOL of it."""
+    cl = closed_loop(B=GP1_EPISODE_B, v=8.0, t_max=GP1_EPISODE_T, device=device, drag=gp,
+                     per_scenario=True, err_from=GP1_ERR_FROM)
+    rel = abs(cl["err_mean_m"] - fused["err_mean_m"]) / fused["err_mean_m"]
+    emit("gp1_episode_batch", **cl, fused_err_mean_m=fused["err_mean_m"], err_rel_vs_fused=rel,
+         tol_rel=EPISODE_ERR_REL_TOL)
+    check(math.isfinite(cl["err_mean_m"]) and math.isfinite(cl["err_p95_m"]),
+          f"gp1 episode batch: non-finite error {cl}")
+    check(rel <= EPISODE_ERR_REL_TOL, f"gp1 episode batch: error {cl['err_mean_m']} not within "
+          f"{EPISODE_ERR_REL_TOL} of the fused loop's {fused['err_mean_m']}")
     return cl
 
 
@@ -1381,14 +1535,22 @@ def main() -> None:
     phase_per_scenario_auto_range(device)
     episode_ref = phase_episode_cpu_f64()
     torch.cuda.empty_cache()
+    # the gp1 workflow's training path (its offline RGP's CPU reference and
+    # the solve check's f64 plain versions need the plain versions unfenced)
+    gp1 = {}
+    paths = {"gp1_training": drive(lambda: gp1.update(phase_gp1_training(device)))}
+    phase_gp1_solve(device, gp1["gp"])
+    torch.cuda.empty_cache()
 
     # the main paths: counts from 0 before each, plain versions fenced off
     saved = [getattr(mod, name) for mod, name in PLAINS]
     for mod, name in PLAINS:
         setattr(mod, name, _fenced(mod.__name__))
+    closed = {}
     try:
-        paths = {
-            "hybrid": drive(lambda: phase_slice(device), lambda: phase_closed_loop(device)),
+        paths |= {
+            "hybrid": drive(lambda: phase_slice(device),
+                            lambda: closed.update(phase_closed_loop(device))),
             "split": drive(lambda: phase_pipeline_slice(device, "split")),
             "fused": drive(lambda: phase_pipeline_slice(device, "fused")),
             "warm_chain": drive(lambda: phase_warm_chain(device)),
@@ -1396,7 +1558,12 @@ def main() -> None:
             "episode": drive(lambda: phase_episode(device, episode_ref)),
             "episode_batch": drive(lambda: phase_episode_batch(device)),
             "hetero": drive(lambda: phase_hetero(device)),
+            "gp1_fused": drive(lambda: phase_gp1_flight(device, gp1["gp"], gp1["gp0"], closed)),
         }
+        # the fused loop's run of the per-scenario path's episodes, its reference
+        fused = closed_loop(B=GP1_EPISODE_B, v=8.0, t_max=GP1_EPISODE_T, device=device,
+                            drag=gp1["gp"], err_from=GP1_ERR_FROM)
+        paths["gp1_episode_batch"] = drive(lambda: phase_gp1_episode_batch(device, gp1["gp"], fused))
         phase_crossover(device)
         torch.cuda.empty_cache()
         peak, probe = {}, {}
@@ -1425,6 +1592,9 @@ def main() -> None:
               "episode": {"lin_kernel", "condense_ab_kernel"},
               "episode_batch": {"lin_kernel", "condense_kernel"},
               "hetero": {"lin_kernel", "sqp_fused_kernel"},
+              "gp1_training": {"lin_kernel", "sqp_fused_kernel"},
+              "gp1_fused": {"lin_kernel", "sqp_fused_kernel"},
+              "gp1_episode_batch": {"lin_kernel", "condense_kernel"},
               "peak": {"fma_peak"},
               "transpose": {"mirror_probe", "elem_probe"},
               "phases": {"sqp_step_kernel", "lin_kernel", "condense_kernel", "qp_kernel"},

@@ -5,8 +5,11 @@ layout so every module has a counterpart there:
 
 - ``utils``    : quaternion algebra, the tensor containers, the reference
                  chunk gather
-- ``models``   : quadrotor parameters (the four presets) and dynamics, the
-                 recursive GP, the RGP-augmented MPC model
+- ``models``   : quadrotor parameters (the four presets, xacro files) and
+                 dynamics, the learned drag (the recursive GP and its
+                 hyperparameter learner, the exact GP and its fit,
+                 ``GPEnsemble`` and its model files, the training data and
+                 the offline trainers), the drag-augmented MPC model
 - ``ops``      : the SQP-RTI solve, batched (``SQPSolver.solve_batch``) and
                  per scenario (``SQPSolver.solve``), the box-QP solvers;
                  ``ops.cuda`` holds the hand-written Hopper kernels (sources
@@ -15,8 +18,10 @@ layout so every module has a counterpart there:
 - ``loop``     : the closed learning loops: ``run_episode`` (one episode, or a
                  batch as ``run_episode_batch``) and the batch-major
                  ``run_episode_batch_fused``
+- ``io``       : episode logs (the reference's keys) and checkpoints
 - ``bench``    : the measurement harness and the benchmark's scenarios
-- ``interop``  : parameters from the JAX package (as numpy) into this one
+- ``interop``  : parameters and GP states from the JAX package (as numpy)
+                 into this one
 
 Importing the package never imports ``jax``, builds no kernel and touches no
 GPU: the CUDA library is compiled at the first launch on a CUDA tensor.

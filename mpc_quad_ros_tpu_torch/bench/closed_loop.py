@@ -3,7 +3,9 @@
 per-episode randomised drag (scales U(0.5, 2)) and per-episode RGP state
 track the accelerating 10 m-radius circle at v for t_max seconds, one MPC
 tick per 0.1 s, through the fused loop (``solve_batch``) or, with
-`per_scenario`, ``run_episode_batch`` (the per-scenario ``solve``).
+`per_scenario`, ``run_episode_batch`` (the per-scenario ``solve``).  The
+MPC's drag model is the online RGP (gp2), or with `drag` none (gp0) or a
+pretrained GP shared by the episodes (gp1).
 
 ``hetero_closed_loop`` runs the fused loop on a heterogeneous batch: each
 episode draws v_max from (4, 8, 12) m/s and flies the accelerating circle
@@ -61,29 +63,37 @@ def _sync(device):
 
 
 def closed_loop(B: int = 1024, v: float = 8.0, t_max: float = 10.0, device="cuda",
-                seed: int = 0, per_scenario: bool = False) -> dict:
+                seed: int = 0, per_scenario: bool = False, drag="rgp", err_from: int = 30,
+                outputs: bool = False):
     """Run the scenario once short and once in full; time the full run.  The
-    tracking error is taken from tick 30 on, as in the JAX benchmark."""
+    tracking error is taken from tick `err_from` on (30, as in the JAX
+    benchmark).  `drag`: "rgp" (gp2), None (gp0) or a GP record with a
+    leading (3,) axis (gp1).  Returns the summary, and with `outputs` the
+    full run's ``EpisodeOutput`` beside it."""
     cfg, solver, pb, x0, traj, rgp = setup(B, v, t_max, device, seed)
     T = traj.shape[1]
     loop = run_episode_batch if per_scenario else run_episode_batch_fused
-    loop(cfg, solver, pb, x0, traj, WARMUP_TICKS, rgp)
+    learn = drag == "rgp"
+    rgp0, gp_aug = (rgp, None) if learn else (None, drag)
+    loop(cfg, solver, pb, x0, traj, WARMUP_TICKS, rgp0, gp_aug)
     _sync(device)
     t0 = time.perf_counter()
-    _, outs = loop(cfg, solver, pb, x0, traj, T, rgp)
+    _, outs = loop(cfg, solver, pb, x0, traj, T, rgp0, gp_aug)
     _sync(device)
     dt = time.perf_counter() - t0
-    err = np.linalg.norm(
-        (outs.x_odom[:, 30:, :3] - outs.x_ref[:, 30:, :3]).double().cpu().numpy(), axis=2)
-    return {
+    err = np.linalg.norm((outs.x_odom[:, err_from:, :3] - outs.x_ref[:, err_from:, :3])
+                         .double().cpu().numpy(), axis=2)
+    summary = {
         "metric": "closed-loop learning throughput",
         "device": (torch.cuda.get_device_name(device)
                    if torch.device(device).type == "cuda" else "cpu"),
-        "loop": loop.__name__, "episodes": B, "ticks": T,
+        "loop": loop.__name__, "drag": "gp2" if learn else "gp0" if drag is None else "gp1",
+        "episodes": B, "ticks": T, "err_from_tick": err_from,
         "tick_solves_per_s": B * T / dt,
         "err_mean_m": float(err.mean()),
         "err_p95_m": float(np.percentile(err, 95)),
     }
+    return (summary, outs) if outputs else summary
 
 
 def hetero_setup(B: int, device="cuda", seed: int = 0, path_m: float = HETERO_PATH_M):

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda import _build, condense_kernel, lin_kernel, qp_kernel
+from ..utils.device import resolve_device
 from . import bounds
 from .operating_point import N_BASIS, operating_point
 
@@ -49,14 +50,6 @@ FMA_CHAINS = (1, 2, 4, 8, 16)
 # The JAX kernel's cost weights (``bench/phases.py:280-281``).
 QW = (10.0,) * 3 + (0.1,) * 4 + (0.05,) * 6
 RW = (0.1,) * 4
-
-
-def resolve_device(device) -> torch.device:
-    """The device, raising when the card is asked for and absent."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("needs a CUDA device (pass device='cpu' for the plain versions)")
-    return dev
 
 
 def card() -> str:

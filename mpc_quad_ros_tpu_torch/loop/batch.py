@@ -15,7 +15,7 @@ Counterpart of ``mpc_quad_ros_tpu/loop/batch.py``:
   4. n_sub = round(dt_mpc / dt_sim) RK4 substeps of the drag plant under
      the held first control, with per-episode plant parameters;
   5. the per-axis RGP Kalman update from the previous tick's prediction
-     error;
+     error (gp2; gp1's static `gp_aug` is folded once before the ticks);
   6. with `episode_ticks`, the carry of every finished episode frozen, and
      the per-tick `active` mask logged;
 - ``tracking_rmse_masked``: the RMS tracking error over the active ticks.
@@ -32,8 +32,8 @@ from ..models.dynamics import compute_a_drag_target, plant_substeps
 from ..models.params import QuadParams
 from ..models.rgp import RGPState, rgp_regress
 from ..ops.sqp import SQPSolver, init_carry
-from .episode import (EpisodeCarry, EpisodeConfig, EpisodeOutput, require_no_gp_aug,
-                      run_episode, stack_ticks, tick_output)
+from .episode import (EpisodeCarry, EpisodeConfig, EpisodeOutput, run_episode, stack_ticks,
+                      static_drag, tick_output)
 
 
 def run_episode_batch(
@@ -44,7 +44,7 @@ def run_episode_batch(
     x_trajectory: torch.Tensor,    # (B, T, 13)
     n_ticks: int,
     rgp0: Optional[RGPState] = None,   # fields with leading (B, 3) or None
-    gp_aug=None,
+    gp_aug=None,                       # static pretrained GP (3, ...) shared by all episodes
 ) -> tuple[EpisodeCarry, EpisodeOutput]:
     """B independent episodes, each as ``run_episode`` runs it; logs stacked
     to (B, n_ticks, ...)."""
@@ -71,7 +71,7 @@ def run_episode_batch_fused(
     x_trajectory: torch.Tensor,    # (B, T, 13)
     n_ticks: int,
     rgp0: Optional[RGPState] = None,   # fields with leading (B, 3) or None
-    gp_aug=None,
+    gp_aug=None,                       # static pretrained GP, (B, 3, ...) or shared (3, ...)
     traj_len: Optional[torch.Tensor] = None,       # (B,) valid samples of each episode <= T
     episode_ticks: Optional[torch.Tensor] = None,  # (B,) ticks of each episode <= n_ticks
 ) -> tuple[EpisodeCarry, EpisodeOutput]:
@@ -83,7 +83,6 @@ def run_episode_batch_fused(
     `episode_ticks` each episode's tick count (its carry freezes after it,
     and ``EpisodeOutput.active`` marks its live ticks).  With identical
     shapes a masked run is bitwise the unmasked one."""
-    require_no_gp_aug(gp_aug)
     mpc = cfg.mpc
     n_sub = cfg.n_substeps
     T = x_trajectory.shape[1]
@@ -93,6 +92,7 @@ def run_episode_batch_fused(
     if episode_ticks is not None:
         episode_ticks = episode_ticks.to(x0.device)
 
+    aug_static = static_drag(gp_aug, x0)
     carry = EpisodeCarry(x=x0, solver=init_carry(mpc, x0), rgp=rgp0, x_pred_prev=x0)
     ticks = []
     for i in range(n_ticks):
@@ -104,7 +104,8 @@ def run_episode_batch_fused(
             idx = torch.minimum(steps[None, :], last)                  # (B, N)
             x_ref = torch.take_along_dim(x_trajectory, idx[..., None], dim=1)
 
-        solver_carry, sol = solver.solve_batch(carry.solver, x, x_ref, x_ref[:, -1], carry.rgp)
+        aug = carry.rgp if use_rgp else aug_static
+        solver_carry, sol = solver.solve_batch(carry.solver, x, x_ref, x_ref[:, -1], aug)
         u = sol.U[:, 0]
 
         x_pred = solver.discrete_dynamics(x, u, mpc.dt, None)

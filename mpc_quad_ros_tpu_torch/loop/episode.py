@@ -13,6 +13,10 @@ Counterpart of ``mpc_quad_ros_tpu/loop/episode.py``.  Each tick:
    i - 1;
 6. the per-tick logs.
 
+The MPC's drag model is the online RGP (gp2, `rgp0`), a static pretrained
+GP (gp1, `gp_aug`: a ``GPState``, or any drag record, folded once before the
+tick loop) or none (gp0).
+
 ``run_episode`` takes one episode (x0 (13,)) or a batch (x0 (B, 13), every
 other input with a leading (B,)): the batch is the JAX package's ``vmap`` of
 the episode, ``loop/batch.py::run_episode_batch``.
@@ -25,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..models.augmented import FoldedDrag, fold_drag
 from ..models.dynamics import compute_a_drag_target, plant_substeps
 from ..models.params import QuadParams
 from ..models.rgp import RGPState, rgp_regress
@@ -79,10 +84,19 @@ class EpisodeOutput(Tensors):
     active: Optional[torch.Tensor] = None
 
 
-def require_no_gp_aug(gp_aug) -> None:
-    if gp_aug is not None:
-        raise NotImplementedError("gp_aug (the static pretrained GP, gp1) is not ported yet "
-                                  "(ROADMAP queue 1, item 6)")
+def static_drag(gp_aug, x: torch.Tensor) -> Optional[FoldedDrag]:
+    """The static drag model (gp1) folded once for a whole run, in x's dtype
+    and on its device (the fold in gp_aug's own dtype), broadcast to x's
+    leading (B,) where gp_aug has none; None stays None."""
+    if gp_aug is None:
+        return None
+    aug = fold_drag(gp_aug)
+    if not isinstance(aug, FoldedDrag):
+        raise TypeError(f"unsupported augmentation state: {type(gp_aug)}")
+    aug = aug.map(lambda a: a.to(x.device, x.dtype))
+    if aug.X.dim() - 2 < x.dim() - 1:
+        aug = aug.map(lambda a: a.expand(x.shape[:-1] + a.shape).contiguous())
+    return aug
 
 
 def tick_output(x, x_pred, x_ref0, u, sol, rgp, v_body, a_drag, log_post: bool,
@@ -126,10 +140,11 @@ def run_episode(
     x0           : ([B,] 13) initial state
     x_trajectory : ([B,] T, 13) sampled reference states
     rgp0         : initial RGP state ([B,] 3, ...) for online learning, or None
+    gp_aug       : static pretrained GP (3, ...) shared by the episodes, or
+                   ([B,] 3, ...); read when rgp0 is None
     carry0       : the carry of an earlier run to resume from (x0 and rgp0
                    are then not read)
     Returns the final carry and the logs stacked to ([B,] n_ticks, ...)."""
-    require_no_gp_aug(gp_aug)
     mpc = cfg.mpc
     n_sub = cfg.n_substeps
     T = x_trajectory.shape[-2]
@@ -139,6 +154,7 @@ def run_episode(
         # zero drag label
         carry0 = EpisodeCarry(x=x0, solver=init_carry(mpc, x0), rgp=rgp0, x_pred_prev=x0)
     use_rgp = carry0.rgp is not None
+    aug_static = static_drag(gp_aug, carry0.x)
     tick_dim = carry0.x.dim() - 1
     faulty = torch.as_tensor(cfg.fault_rotors, dtype=plant_params.rotor_functionality.dtype,
                              device=plant_params.rotor_functionality.device)
@@ -151,7 +167,8 @@ def run_episode(
         idx = ((i + nodes) * cfg.control_skip).clamp(0, T - 1)
         x_ref = x_trajectory[..., idx, :]                              # ([B,] N, 13)
 
-        solver_carry, sol = solver.solve(carry.solver, x, x_ref, x_ref[..., -1, :], carry.rgp)
+        aug = carry.rgp if use_rgp else aug_static
+        solver_carry, sol = solver.solve(carry.solver, x, x_ref, x_ref[..., -1, :], aug)
         u = sol.U[..., 0, :]
 
         x_pred = solver.discrete_dynamics(x, u, mpc.dt, None)

@@ -2,9 +2,9 @@
 
 Counterpart of ``mpc_quad_ros_tpu/models/params.py`` (``QuadParams``, the
 presets ``default_params``, ``default_v1_params``, ``hummingbird_params`` and
-``crazyflie_params`` with their ``payload`` argument, ``randomize_params``).
-``params_from_xacro`` is not ported.  Every field is a tensor so a
-leading (B,) axis can carry per-episode parameters.
+``crazyflie_params`` with their ``payload`` argument, ``params_from_xacro``,
+``randomize_params``).  Every field is a tensor so a leading (B,) axis can
+carry per-episode parameters.
 """
 
 from __future__ import annotations
@@ -81,6 +81,28 @@ def crazyflie_params(dtype=torch.float32, device=None, payload: bool = False) ->
     return _mk(dict(mass=0.027, J=[1.8e-5, 1.8e-5, 3.3e-5], max_thrust=0.3,
                     x_f=[h, -h, -h, h], y_f=[-h, -h, h, h], z_l_tau=[-c, c, -c, c]),
                payload, dtype, device)
+
+
+def params_from_xacro(path: str, quad_name: str = "hummingbird", dtype=torch.float32,
+                      device=None, payload: bool = False) -> QuadParams:
+    """Parameters from a RotorS-style xacro file: mass = body + 4 rotors,
+    J from the first <inertia>, max_thrust = w_max^2 * k_m; the '+' frame
+    for "hummingbird" (z arms negated), the 'x' frame for any other name."""
+    from ..utils.xacro import parse_xacro_properties
+
+    attrib = parse_xacro_properties(path)
+    inertia = attrib["body_inertia"][0]
+    length = float(attrib["arm_length"])
+    c = float(attrib["moment_constant"])
+    if quad_name != "hummingbird":
+        h = math.cos(math.pi / 4) * length
+        frame = dict(x_f=[h, -h, -h, h], y_f=[-h, -h, h, h], z_l_tau=[-c, c, -c, c])
+    else:
+        frame = dict(**_plus_frame(length), z_l_tau=[c, -c, c, -c])
+    return _mk(dict(mass=float(attrib["mass"]) + 4 * float(attrib["mass_rotor"]),
+                    J=[float(inertia["ixx"]), float(inertia["iyy"]), float(inertia["izz"])],
+                    max_thrust=float(attrib["max_rot_velocity"]) ** 2
+                    * float(attrib["motor_constant"]), **frame), payload, dtype, device)
 
 
 def randomize_params(base: QuadParams, n: int,

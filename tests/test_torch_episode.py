@@ -183,7 +183,9 @@ def test_make_episode_fn_and_gp_aug():
     _, out = fn(p, t(inp["x0"]), t(circle(8.0)), interop.rgp_state_from_numpy(inp["rgp"]))
     _, whole = port_single()
     assert torch.equal(out.x_odom, whole.x_odom[:3])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # gp_aug is the static GP (gp1, tests/test_torch_gp1_loop.py); a record
+    # that is no drag model is refused
+    with pytest.raises(TypeError, match="augmentation"):
         fn(p, t(inp["x0"]), t(circle(8.0)), gp_aug=object())
 
 
