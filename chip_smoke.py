@@ -63,8 +63,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    GP (gp1) through the fused loop on the closed loop's fleet at 16384 x 100
    ticks (kernels A and B; the fitted drone's error below ERR_MEAN_TOL, the
    fleet's below the gp0 flight's) and through ``run_episode_batch`` at
-   B=1024, 30 ticks (kernels A and D; its error within 10 % of the fused
+   B=1024, 20 ticks (kernels A and D; its error within 10 % of the fused
    loop's on the same episodes);
+   then the paper's learning metric off the gp0 training flight and the gp2
+   closed loop (the same fleet): each episode's cov(v, e) per axis
+   (``Visualiser.velocity_error_covariance``), the ratio |gp0| / |gp2| of
+   episode 0 and the fleet's median, above 1.5 on x and y; then the
+   simulation entry point: ``run.main`` with the reference's own command at the
+   closed loop's fleet width (``--gpe 2 --trajectory 2 --v_max 10 --a_max
+   10 --batch 16384 -o``: 300 ticks of the fused loop, kernels A and B;
+   tick-solves/s, the RMSE's mean, min and max, the log's keys); trajectory
+   1 (random waypoints through min-snap) by ``run.build_trajectory``, the
+   native min-snap against the numpy one, and its first 50 ticks through
+   the fused loop at B=1024 (kernels A and B); ``compare.run_matrix_batched``
+   on gpe 0, 1, 2 at v_max 4, 8, 12 m/s, 30 ticks (gpe 1 the gp1
+   workflow's model; three batches of 3, the small-batch step: kernels A, J,
+   E); ``io/profiling.py::profile_solver_phases`` at B=65536, N=10 with RGP
+   drag (kernels A, D, E and the hybrid solve, A and B);
 10. the "split" and "fused" slices: the N=10 slice's chained solves through
     kernels A, D, E and through kernel F alone;
 11. the warm-dual regulation chain (``bench/regulation.py``) at B=65536, 40
@@ -103,8 +118,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 The launch counters are reset just before each path (the gp1 workflow's
 training path in 7, phases 8-9 with the episode, the episode batch, the
-heterogeneous batch and the two gp1 flights each a path of its own, 10
-split, 10 fused, 11, 12, and the measured parts of 14-20) and read just
+heterogeneous batch, the two gp1 flights, the run CLI, min-snap, the matrix
+and the profile each a path of its own, 10 split, 10 fused, 11, 12, and the
+measured parts of 14-20) and read just
 after; each
 path must have launched its kernels and no other.  Every chained solve is
 timed by ``bench/phases.py::time_solves``.  The plain versions are
@@ -115,6 +131,7 @@ its launches, its time, its plain version's and its bound
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -124,24 +141,34 @@ import subprocess
 import sys
 import time
 import warnings
+from io import StringIO
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from mpc_quad_ros_tpu_torch import compare, run  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench import (bounds, gp1_workflow, headline,  # noqa: E402
                                            per_scenario, phases, probe_hybrid, suite)
 from mpc_quad_ros_tpu_torch.bench.closed_loop import (closed_loop, hetero_closed_loop,  # noqa: E402
-                                                      skip_closed_loop)
+                                                      setup, skip_closed_loop,
+                                                      velocity_error_covariances)
 from mpc_quad_ros_tpu_torch.bench.crossover import crossover_row, per_scenario_row  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.operating_point import N_BASIS, operating_point  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench.regulation import regulation_chain, regulation_setup  # noqa: E402
+from mpc_quad_ros_tpu_torch.io import SimConfig, load_dict  # noqa: E402
+from mpc_quad_ros_tpu_torch.io.profiling import profile_solver_phases  # noqa: E402
+from mpc_quad_ros_tpu_torch.loop import run_episode_batch_fused  # noqa: E402
 from mpc_quad_ros_tpu_torch.models import (fold_drag, gp_mean_world,  # noqa: E402
                                            hummingbird_params, make_mpc_dynamics, rgp_init)
 from mpc_quad_ros_tpu_torch.ops import qp_kkt_residual, sqp  # noqa: E402
 from mpc_quad_ros_tpu_torch.ops.cuda import (_build, condense_kernel, lin_kernel,  # noqa: E402
                                              qp_kernel, riccati_kernel, sqp_fused_kernel)
 from mpc_quad_ros_tpu_torch.ops.cuda.condense_common import split_AB  # noqa: E402
+from mpc_quad_ros_tpu_torch.traj import min_snap_trajectory, random_waypoints  # noqa: E402
+from mpc_quad_ros_tpu_torch.traj.native_minsnap import (native_available,  # noqa: E402
+                                                        native_min_snap_trajectory)
 
 SOLVE_B = 65536
 CLOSED_B = 16384
@@ -239,13 +266,39 @@ CONDENSE_WARPS_BEFORE = 11
 # CPU's, relative to the largest entry (the same algorithm; cuSOLVER's
 # inverses and eigendecompositions against LAPACK's, over 99 and 50 steps).
 OFFLINE_REL_TOL = 1e-9
-# gp1 through run_episode_batch: B scenarios for T seconds (30 ticks), the
+# gp1 through run_episode_batch: B scenarios for T seconds (20 ticks; 30
+# until the run CLI's phases joined the script, cut to keep its time), the
 # error from tick 10 on, held against the fused loop's on the same episodes.
-GP1_EPISODE_B, GP1_EPISODE_T, GP1_ERR_FROM = 1024, 3.0, 10
+GP1_EPISODE_B, GP1_EPISODE_T, GP1_ERR_FROM = 1024, 2.0, 10
 # the one drone's episode, on the card and its CPU f64 reference: 5 s (50
 # ticks, the error from tick 30 on)
 EPISODE_T_MAX = 5.0
 GP1_DIR = pathlib.Path(__file__).resolve().parent / "build" / "gp1_workflow"
+# The run CLI's command (``run.py``), the reference's primary benchmark, at the
+# closed loop's fleet width: 300 ticks of the 30 s circle at 10 m/s, gp2.
+CLI_DIR = pathlib.Path(__file__).resolve().parent / "build" / "cli"
+CLI_ARGS = ("--gpe", "2", "--trajectory", "2", "--v_max", "10", "--a_max", "10",
+            "--batch", str(CLOSED_B))
+# Its tracking RMSE over all 300 ticks, the descent from hover at 3 m to the
+# circle's plane included: the JAX package's run of the same command for one
+# drone (f32, CPU) read 0.4105 m; the fleet's mean is held to that + 10 %.
+CLI_RMSE_TOL = 0.45
+# the fleet's line that ``run_sim`` prints
+CLI_REPORT = re.compile(r"(?P<episodes>\d+) episodes x (?P<ticks>\d+) ticks in (?P<seconds>\S+)s "
+                        r".*rmse mean=(?P<mean>\S+) m min=(?P<min>\S+) max=(?P<max>\S+)$")
+# The random-waypoint trajectory (hsize 30 m, 10 waypoints, seed 0) through
+# min-snap at 10 m/s and 10 m/s^2: the native optimiser against the numpy one
+# at tests/test_native_minsnap.py's tolerances, then its first 50 ticks
+# through the fused loop at B=1024 (gp2).
+MINSNAP_B, MINSNAP_TICKS = 1024, 50
+MINSNAP_DUR_RTOL, MINSNAP_POS_TOL = 1e-8, 1e-6
+# The comparison matrix: gpe 0, 1, 2 at v_max 4, 8, 12 m/s on the circle,
+# max_ticks 30, one heterogeneous fused batch a gpe mode.
+MATRIX_DIR = pathlib.Path(__file__).resolve().parent / "build" / "matrix"
+MATRIX_V, MATRIX_TICKS = (4, 8, 12), 30
+# The paper's learning metric: |cov(v, e)| of gp0 over gp2's, per axis, the
+# JAX package's bound on x and y (tests/test_paper_metrics.py).
+PAPER_RATIO_MIN = 1.5
 T0 = time.perf_counter()
 
 
@@ -1154,12 +1207,16 @@ def phase_crossover(device) -> None:
 
 
 def phase_closed_loop(device) -> dict:
-    cl = closed_loop(B=CLOSED_B, v=8.0, t_max=10.0, device=device)
+    """The gp2 closed loop; its episodes' learning metric rides along
+    (``cov``, for ``phase_paper_metric``)."""
+    cl, outs = closed_loop(B=CLOSED_B, v=8.0, t_max=10.0, device=device, outputs=True)
+    cov = velocity_error_covariances(outs)
+    del outs
     emit("closed_loop", **cl)
     check(math.isfinite(cl["err_mean_m"]) and math.isfinite(cl["err_p95_m"]),
           f"closed loop: non-finite error {cl}")
     check(cl["err_mean_m"] < ERR_MEAN_TOL, f"closed loop: err_mean_m {cl['err_mean_m']} >= {ERR_MEAN_TOL}")
-    return cl
+    return {**cl, "cov": cov}
 
 
 def gp1_aug(gp, B: int, dtype, device):
@@ -1175,7 +1232,9 @@ def phase_gp1_training(device) -> dict:
     offline RGP (``train_rgp`` and ``rgp_learn``) on the card and on the
     CPU in float64."""
     GP1_DIR.mkdir(parents=True, exist_ok=True)
-    gp0, log_path = gp1_workflow.training_flight(CLOSED_B, str(GP1_DIR), device)
+    gp0, log_path, outs = gp1_workflow.training_flight(CLOSED_B, str(GP1_DIR), device, outputs=True)
+    cov_gp0 = velocity_error_covariances(outs)
+    del outs
     emit("gp1_training_flight", **gp0, log=os.path.relpath(log_path, GP1_DIR.parents[1]))
     check(math.isfinite(gp0["err_mean_m"]) and math.isfinite(gp0["err_p95_m"]),
           f"gp1 training flight: non-finite error {gp0}")
@@ -1189,7 +1248,7 @@ def phase_gp1_training(device) -> dict:
     check(rgp["finite"], f"offline RGP: non-finite state {rgp}")
     check(rgp["train_rgp_rel_vs_cpu"] <= OFFLINE_REL_TOL and rgp["rgp_learn_rel_vs_cpu"] <= OFFLINE_REL_TOL,
           f"offline RGP: the card's float64 run is off the CPU's {rgp}")
-    return {"gp": gpe.state, "gp0": gp0, "fit": fitted, "offline_rgp": rgp}
+    return {"gp": gpe.state, "gp0": gp0, "fit": fitted, "offline_rgp": rgp, "cov_gp0": cov_gp0}
 
 
 def phase_gp1_solve(device, gp) -> None:
@@ -1276,7 +1335,7 @@ def phase_gp1_flight(device, gp, gp0: dict, gp2: dict) -> dict:
 
 def phase_gp1_episode_batch(device, gp, fused: dict) -> dict:
     """gp1_workflow, step 6: ``run_episode_batch`` (the per-scenario solve,
-    kernels A and D) in gp1 at B=1024 for 30 ticks, against the fused loop's
+    kernels A and D) in gp1 at B=1024 for 20 ticks, against the fused loop's
     run of the same episodes (`fused`, made before the counters were reset):
     the tracking error from tick 10 within EPISODE_ERR_REL_TOL of it."""
     cl = closed_loop(B=GP1_EPISODE_B, v=8.0, t_max=GP1_EPISODE_T, device=device, drag=gp,
@@ -1289,6 +1348,157 @@ def phase_gp1_episode_batch(device, gp, fused: dict) -> dict:
     check(rel <= EPISODE_ERR_REL_TOL, f"gp1 episode batch: error {cl['err_mean_m']} not within "
           f"{EPISODE_ERR_REL_TOL} of the fused loop's {fused['err_mean_m']}")
     return cl
+
+
+def phase_paper_metric(cov_gp0: np.ndarray, cov_gp2: np.ndarray) -> dict:
+    """The paper's learning metric off the flights this run already made:
+    each episode's cov(v, e) per axis (``Visualiser``) in the gp0 training
+    flight and the gp2 closed loop, the same fleet; the ratio |gp0| / |gp2|
+    of episode 0 and the fleet's median ratio, each held above
+    PAPER_RATIO_MIN on x and y."""
+    ratio = np.abs(cov_gp0) / np.abs(cov_gp2)
+    row = {"episodes": int(ratio.shape[0]), "ratio_episode0_xyz": ratio[0].tolist(),
+           "ratio_median_xyz": np.median(ratio, axis=0).tolist(),
+           "cov_gp0_episode0_xyz": cov_gp0[0].tolist(), "cov_gp2_episode0_xyz": cov_gp2[0].tolist(),
+           "abs_cov_gp0_median_xyz": np.median(np.abs(cov_gp0), axis=0).tolist(),
+           "abs_cov_gp2_median_xyz": np.median(np.abs(cov_gp2), axis=0).tolist(),
+           "tol_ratio": PAPER_RATIO_MIN}
+    emit("paper_metric", **row)
+    for key in ("ratio_episode0_xyz", "ratio_median_xyz"):
+        check(min(row[key][:2]) > PAPER_RATIO_MIN,
+              f"paper metric: {key} {row[key]} not above {PAPER_RATIO_MIN} on x and y")
+    return row
+
+
+def phase_cli(device) -> dict:
+    """``run.main`` with the reference's own command at the closed loop's
+    fleet width (``-o`` a log): the batched route, ``run_episode_batch_fused``
+    (kernels A and B).  The fleet's timing and RMSE are the line the command
+    prints (the loop's seconds to 10 ms, the RMSE to 1 mm); drone 0's
+    flight is its log."""
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    log_path = CLI_DIR / "gp2_v10.pkl"
+    argv = [*CLI_ARGS, "-o", str(log_path)]
+    out = StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = run.main(argv)
+    main_s = time.perf_counter() - t0
+    stdout = out.getvalue().splitlines()
+    found = [m for m in map(CLI_REPORT.search, stdout) if m]
+    check(len(found) == 1, f"cli: no fleet report line in {stdout}")
+    m = found[0]
+    episodes, ticks, seconds = int(m["episodes"]), int(m["ticks"]), float(m["seconds"])
+    log = load_dict(str(log_path))
+    x, u = np.stack(log["x_odom"]), np.stack(log["w_odom"])
+    rmse = {k: float(m[k]) for k in ("mean", "min", "max")}
+    row = {"command": "python -m mpc_quad_ros_tpu_torch.run " + " ".join(argv[:-1]) + " OUT.pkl",
+           "exit_code": rc, "episodes": episodes, "ticks": ticks, "seconds": seconds,
+           "main_s": main_s, "tick_solves_per_s": episodes * ticks / seconds,
+           "rmse_mean_m": rmse["mean"], "rmse_min_m": rmse["min"], "rmse_max_m": rmse["max"],
+           "drone0_u_min": float(u.min()), "drone0_u_max": float(u.max()),
+           "log_keys": sorted(log), "log_ticks": int(x.shape[0]), "stdout": stdout,
+           "tol_rmse_mean": CLI_RMSE_TOL}
+    emit("cli", **row)
+    check(rc == 0, f"cli: run.main returned {rc}")
+    check(episodes == CLOSED_B and all(math.isfinite(v) for v in rmse.values()),
+          f"cli: the fleet report is off {row}")
+    check(bool(np.isfinite(x).all() and np.isfinite(u).all()) and x.shape == (ticks, 13),
+          f"cli: non-finite or misshapen log {row}")
+    check(row["drone0_u_min"] >= -U_BOX_SLACK and row["drone0_u_max"] <= 1 + U_BOX_SLACK,
+          f"cli: controls left the box {row}")
+    check(row["rmse_mean_m"] < CLI_RMSE_TOL, f"cli: rmse mean {row['rmse_mean_m']} >= {CLI_RMSE_TOL}")
+    check({"x_odom", "x_ref", "w_odom", "t_odom", "t_cpu", "rgp_mu_g_t"} <= set(log),
+          f"cli: the log lacks the reference's keys {sorted(log)}")
+    return row
+
+
+def phase_minsnap(device) -> dict:
+    """Trajectory 1 (random waypoints, hsize 30, 10 waypoints, seed 0) by
+    ``run.build_trajectory`` (the numpy min-snap), the native min-snap held
+    to the numpy one, then the first MINSNAP_TICKS ticks of the trajectory
+    through the fused loop at B=MINSNAP_B (gp2, the closed loop's fleet)."""
+    cfg = SimConfig(gpe=2, trajectory=1, v_max=10.0, a_max=10.0, seed=0)
+    x0_pos = np.array([0.0, 0.0, 3.0])
+    t0 = time.perf_counter()
+    x_traj, ts = run.build_trajectory(cfg, x0_pos, sqp.MPCConfig().dt)
+    build_s = time.perf_counter() - t0
+    wp = random_waypoints(hsize=30.0, num_waypoints=10, start_point=x0_pos, seed=0)
+    py = min_snap_trajectory(wp, cfg.v_max, cfg.a_max, backend="python")
+    check(native_available(), "minsnap: the native library does not build (g++)")
+    t0 = time.perf_counter()
+    nat = native_min_snap_trajectory(wp, cfg.v_max, cfg.a_max)
+    native_s = time.perf_counter() - t0
+    tq = np.linspace(0.0, py.duration * 0.999, 2000)
+    dur_rel = float(np.abs(nat.durations - py.durations).max() / np.abs(py.durations).max())
+    pos_err = float(np.abs(nat.eval_flat(tq)["pos"] - py.eval_flat(tq)["pos"]).max())
+
+    ecfg, solver, pb, x0, _, rgp = setup(MINSNAP_B, v=cfg.v_max, t_max=1.0, device=device)
+    traj = torch.as_tensor(x_traj, dtype=torch.float32, device=device)
+    traj = traj.expand((MINSNAP_B,) + traj.shape)
+    run_episode_batch_fused(ecfg, solver, pb, x0, traj, 2, rgp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, outs = run_episode_batch_fused(ecfg, solver, pb, x0, traj, MINSNAP_TICKS, rgp)
+    torch.cuda.synchronize()
+    fly_s = time.perf_counter() - t0
+    err = (outs.x_odom[..., :3] - outs.x_ref[..., :3]).double().norm(dim=-1)
+    u = outs.w_odom
+    row = {"waypoints": int(wp.shape[0]), "duration_s": py.duration, "samples": int(len(ts)),
+           "build_trajectory_s": build_s, "native_s": native_s,
+           "native_durations_rel_vs_numpy": dur_rel, "native_pos_vs_numpy_m": pos_err,
+           "episodes": MINSNAP_B, "ticks": MINSNAP_TICKS,
+           "tick_solves_per_s": MINSNAP_B * MINSNAP_TICKS / fly_s,
+           "err_mean_m": err.mean().item(), "err_max_m": err.max().item(),
+           "v_ref_max_m_s": float(np.linalg.norm(x_traj[:MINSNAP_TICKS, 7:10], axis=1).max()),
+           "u_min": u.min().item(), "u_max": u.max().item(),
+           "tol_durations_rtol": MINSNAP_DUR_RTOL, "tol_pos_m": MINSNAP_POS_TOL,
+           "tol_err_mean_m": ERR_MEAN_TOL}
+    emit("minsnap", **row)
+    check(dur_rel <= MINSNAP_DUR_RTOL and pos_err <= MINSNAP_POS_TOL,
+          f"minsnap: native against numpy {row}")
+    check(bool(torch.isfinite(outs.x_odom).all()) and math.isfinite(row["err_mean_m"]),
+          f"minsnap: non-finite flight {row}")
+    check(row["u_min"] >= -U_BOX_SLACK and row["u_max"] <= 1 + U_BOX_SLACK,
+          f"minsnap: controls left the box {row}")
+    check(row["err_mean_m"] < ERR_MEAN_TOL, f"minsnap: err_mean_m {row['err_mean_m']}")
+    return row
+
+
+def phase_matrix(device) -> dict:
+    """``compare.run_matrix_batched`` on a JSON of gpe 0, 1, 2 at v_max 4, 8,
+    12 m/s on the circle, MATRIX_TICKS ticks: one fused batch of 3 a gpe
+    mode (below SMALL_BATCH: the small-batch step, kernels A, J, E); gpe 1
+    flies the GP of the gp1 workflow's fit."""
+    MATRIX_DIR.mkdir(parents=True, exist_ok=True)
+    spec = {"runs": [{"gpe": g, "trajectory": 2, "v_max": v, "a_max": v}
+                     for g in (0, 1, 2) for v in MATRIX_V]}
+    path = MATRIX_DIR / "matrix.json"
+    path.write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    rows = compare.run_matrix_batched(str(path), str(MATRIX_DIR / "logs"), verbose=False,
+                                      max_ticks=MATRIX_TICKS, gp_path=str(GP1_DIR / "gp1"),
+                                      device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    logs = sorted(os.listdir(MATRIX_DIR / "logs"))
+    emit("matrix", runs=len(rows), ticks=MATRIX_TICKS, seconds=seconds, rows=rows, logs=len(logs))
+    check(len(rows) == len(spec["runs"]) == len(logs), f"matrix: {len(rows)} rows, {len(logs)} logs")
+    check(all(math.isfinite(r["mean_rmse_pos"]) and math.isfinite(r["v_peak"]) for r in rows),
+          f"matrix: non-finite rows {rows}")
+    return {"rows": rows, "seconds": seconds}
+
+
+def phase_profile(device) -> dict:
+    """``io/profiling.py::profile_solver_phases`` at the solve cell's
+    operating point with RGP drag, B=SOLVE_B, N=10: kernel A, kernel D,
+    kernel E and the whole hybrid ``solve_batch`` (A + B), CUDA events."""
+    solver, carry, x0, y_ref, rgp = operating_point(SOLVE_B, device, mu_scale=0.3)
+    res = profile_solver_phases(solver, carry, x0, y_ref, rgp, iters=10)
+    emit("profile", **res, ms={k[:-2]: res[k] * 1e3 for k in ("linearize_s", "assemble_s", "qp_s",
+                                                            "full_solve_s")})
+    check(all(math.isfinite(res[k]) and res[k] > 0 for k in res), f"profile: {res}")
+    return res
 
 
 def sass_ffma_counts() -> dict:
@@ -1564,6 +1774,16 @@ def main() -> None:
         fused = closed_loop(B=GP1_EPISODE_B, v=8.0, t_max=GP1_EPISODE_T, device=device,
                             drag=gp1["gp"], err_from=GP1_ERR_FROM)
         paths["gp1_episode_batch"] = drive(lambda: phase_gp1_episode_batch(device, gp1["gp"], fused))
+        phase_paper_metric(gp1["cov_gp0"], closed["cov"])
+        torch.cuda.empty_cache()
+        # the simulation entry point, its trajectories, the comparison matrix and
+        # the solver's phase profile
+        paths["cli"] = drive(lambda: phase_cli(device))
+        torch.cuda.empty_cache()
+        paths["minsnap"] = drive(lambda: phase_minsnap(device))
+        paths["matrix"] = drive(lambda: phase_matrix(device))
+        paths["profile"] = drive(lambda: phase_profile(device))
+        torch.cuda.empty_cache()
         phase_crossover(device)
         torch.cuda.empty_cache()
         peak, probe = {}, {}
@@ -1595,6 +1815,10 @@ def main() -> None:
               "gp1_training": {"lin_kernel", "sqp_fused_kernel"},
               "gp1_fused": {"lin_kernel", "sqp_fused_kernel"},
               "gp1_episode_batch": {"lin_kernel", "condense_kernel"},
+              "cli": {"lin_kernel", "sqp_fused_kernel"},
+              "minsnap": {"lin_kernel", "sqp_fused_kernel"},
+              "matrix": small_step,
+              "profile": {"lin_kernel", "condense_kernel", "qp_kernel", "sqp_fused_kernel"},
               "peak": {"fma_peak"},
               "transpose": {"mirror_probe", "elem_probe"},
               "phases": {"sqp_step_kernel", "lin_kernel", "condense_kernel", "qp_kernel"},

@@ -7,6 +7,9 @@ tick per 0.1 s, through the fused loop (``solve_batch``) or, with
 MPC's drag model is the online RGP (gp2), or with `drag` none (gp0) or a
 pretrained GP shared by the episodes (gp1).
 
+``velocity_error_covariances`` reads the paper's learning metric off each
+episode of a run.
+
 ``hetero_closed_loop`` runs the fused loop on a heterogeneous batch: each
 episode draws v_max from (4, 8, 12) m/s and flies the accelerating circle
 for HETERO_PATH_M metres (its own trajectory length and tick count, as the
@@ -21,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from ..io.viz import Visualiser
 from ..loop import (EpisodeConfig, run_episode_batch, run_episode_batch_fused,
                     tracking_rmse_masked)
 from ..models.augmented import make_mpc_dynamics
@@ -94,6 +98,16 @@ def closed_loop(B: int = 1024, v: float = 8.0, t_max: float = 10.0, device="cuda
         "err_p95_m": float(np.percentile(err, 95)),
     }
     return (summary, outs) if outputs else summary
+
+
+def velocity_error_covariances(outs) -> np.ndarray:
+    """(B, 3): each episode's cov(v_axis, position error_axis) over its
+    ticks, ``Visualiser.velocity_error_covariance`` (the paper's learning
+    metric)."""
+    x = outs.x_odom.double().cpu().numpy()
+    r = outs.x_ref.double().cpu().numpy()
+    return np.stack([Visualiser({"x_odom": x[b], "x_ref": r[b]}).velocity_error_covariance()
+                     for b in range(x.shape[0])])
 
 
 def hetero_setup(B: int, device="cuda", seed: int = 0, path_m: float = HETERO_PATH_M):

@@ -53,15 +53,17 @@ def rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(torch.finfo(torch.float64).tiny))
 
 
-def training_flight(B: int, out_dir: str, device="cuda", t_max: float = 10.0) -> tuple[dict, str]:
+def training_flight(B: int, out_dir: str, device="cuda", t_max: float = 10.0,
+                    outputs: bool = False) -> tuple:
     """The gp0 flight of B episodes; episode 0 logged to out_dir: (the
-    flight's closed-loop summary, the log's path)."""
+    flight's closed-loop summary, the log's path), and with `outputs` the
+    flight's ``EpisodeOutput`` after them."""
     dev = resolve_device(device)
     summary, outs = closed_loop(B=B, v=8.0, t_max=t_max, device=dev, drag=None, outputs=True)
     ep0 = outs.map(lambda a: a[0])
     t_odom = torch.arange(ep0.x_odom.shape[0], dtype=torch.float64) * MPCConfig().dt
     path = Logger.from_episode(ep0, t_odom=t_odom).save_log(os.path.join(out_dir, "gp0_flight.pkl"))
-    return summary, path
+    return (summary, path, outs) if outputs else (summary, path)
 
 
 def fit(log_path: str, save_dir: str, device="cuda", n: int = N_TRAIN) -> tuple[GPEnsemble, dict]:

@@ -144,7 +144,15 @@ def run_episode(
                    ([B,] 3, ...); read when rgp0 is None
     carry0       : the carry of an earlier run to resume from (x0 and rgp0
                    are then not read)
-    Returns the final carry and the logs stacked to ([B,] n_ticks, ...)."""
+    Returns the final carry and the logs stacked to ([B,] n_ticks, ...).
+
+    Whether the episode learns is read from the starting carry's RGP
+    (``carry0.rgp``, or `rgp0` without a carry).  This deviates from the JAX
+    ``run_episode``, which reads `rgp0` alone: resumed from a carry that
+    holds an RGP but without `rgp0`, the JAX episode flies the nominal
+    model, freezes the RGP and logs none of it, so what the drone learned
+    before the resume is silently dropped; this one keeps learning.  Passed
+    both, the two agree."""
     mpc = cfg.mpc
     n_sub = cfg.n_substeps
     T = x_trajectory.shape[-2]

@@ -16,9 +16,8 @@ and I (the transpose probe, ``bench/probe_hybrid.py::mirror_probe`` and
   scenario in the last round; on 32 lanes nz = 40 and 44 read slots of the
   schedule past those held in registers, and nz = 44 loads a tile in two
   rounds.
-- On a CUDA device (skipped here): the kernels against their plain versions
-  in f32 and in f64, and the probe's wrappers refusing what the kernels do
-  not take."""
+- On a CUDA device: ``test_torch_cuda_kernels.py`` (JAX-free, so that it
+  collects on the GPU host)."""
 
 import functools
 
@@ -33,7 +32,7 @@ from mpc_quad_ros_tpu.bench.phases import _fma_kernel
 from mpc_quad_ros_tpu.bench.probe_hybrid import _elem_kernel, _mirror_kernel
 from mpc_quad_ros_tpu_torch.bench import phases, probe_hybrid
 
-from test_torch_common import host_library, ptr, require_cuda, tiled, untiled
+from test_torch_common import host_library, ptr, tiled, untiled
 
 PROBES = {"mirror": (_mirror_kernel, probe_hybrid.mirror_probe_plain, probe_hybrid.mirror_probe),
           "elem": (_elem_kernel, probe_hybrid.elem_probe_plain, probe_hybrid.elem_probe)}
@@ -183,40 +182,3 @@ def test_cpu_tensors_take_the_plain_versions():
         assert torch.equal(wrapper(h, 3), plain(h, 3))
     assert phases.fma_chains.launches == 0
     assert probe_hybrid.mirror_probe.launches == probe_hybrid.elem_probe.launches == 0
-
-
-def test_cuda_fma_matches_plain():
-    dev = require_cuda()
-    x = torch.from_numpy(_fma_input(4, 8, seed=2))
-    for resident in (True, False):
-        for chains, steps in ((16, 64), (8, 61)):
-            ref = phases.fma_chains_plain(x, chains, steps)
-            out = phases.fma_chains(x.float().to(dev), chains, steps, resident)
-            # one FFMA rounding a step on a growing sum, relative (read 2.6e-6
-            # against f64 on an H100)
-            assert _rel(out.double().cpu().numpy(), ref.numpy()) < 1e-5
-    with pytest.raises(ValueError):
-        phases.fma_chains(x.float().to(dev), 3, 4)
-
-
-@pytest.mark.parametrize("name", sorted(PROBES))
-def test_cuda_probe_matches_plain(name):
-    dev = require_cuda()
-    _, plain, wrapper = PROBES[name]
-    x = torch.from_numpy(np.random.default_rng(6).standard_normal((256, 40, 40)))
-    out = wrapper(x.float().to(dev), 4)
-    # one multiply-add a repetition per entry: f32 rounding, relative
-    assert _rel(out.double().cpu().numpy(), plain(x, 4).numpy()) < 1e-6
-
-
-@pytest.mark.parametrize("name", sorted(PROBES))
-def test_cuda_probe_refuses_odd_widths_and_unaligned_views(name):
-    dev = require_cuda()
-    _, _, wrapper = PROBES[name]
-    launches = wrapper.launches
-    with pytest.raises(ValueError, match="multiple of 4"):
-        wrapper(torch.zeros((8, 6, 6), device=dev), 4)
-    flat = torch.zeros(8 * 40 * 40 + 1, device=dev)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        wrapper(flat[1:].view(8, 40, 40), 4)
-    assert wrapper.launches == launches

@@ -2,7 +2,8 @@
 
 The same numpy arrays, made from a seed, go through the JAX package and
 through the port (``mpc_quad_ros_tpu_torch``), both in float64 on the CPU.
-Parameters and GP state cross over through ``interop``."""
+Parameters and GP state cross over through ``interop``.  The input makers
+are ``test_torch_cuda_common``'s (JAX-free), fed the JAX package's RGP."""
 
 import pathlib
 import shutil
@@ -10,17 +11,14 @@ import shutil
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from mpc_quad_ros_tpu.models.params import hummingbird_params as jax_hummingbird
 from mpc_quad_ros_tpu.models.rgp import RGPState as JaxRGPState
 from mpc_quad_ros_tpu.models.rgp import rgp_init as jax_rgp_init
 from mpc_quad_ros_tpu_torch import interop
 
-# the tier runs several pytest workers: one intra-op thread each
-torch.set_num_threads(1)
-
-N, NB = 10, 10
+import test_torch_cuda_common as cuda_common
+from test_torch_cuda_common import N, NB, require_cuda, t  # noqa: F401  (re-exported)
 
 
 def as_numpy(record) -> dict:
@@ -34,10 +32,6 @@ def jax_params():
 
 def port_params():
     return interop.quad_params_from_numpy(as_numpy(jax_params()))
-
-
-def t(a) -> torch.Tensor:
-    return torch.as_tensor(np.array(a))
 
 
 def rgp_batch(B: int, rng, mu_scale: float = 0.3, nb: int = NB) -> dict:
@@ -55,54 +49,19 @@ def jax_rgp(arrays: dict) -> JaxRGPState:
 
 
 def solve_inputs(B: int, seed: int = 0, N: int = N) -> dict:
-    """The benchmark's operating point: hover at 3 m with velocities
-    U(-3, 3), the reference stepped 1-5 m along x over the N-node horizon."""
-    rng = np.random.default_rng(seed)
-    x0 = np.zeros((B, 13))
-    x0[:, 3] = 1.0
-    x0[:, 2] = 3.0
-    x0[:, 7:10] += rng.uniform(-3.0, 3.0, (B, 3))
-    y_ref = np.repeat(x0[:, None, :], N, axis=1)
-    y_ref[:, :, 0] += np.linspace(0.0, 1.0, N)[None, :] * rng.uniform(1.0, 5.0, (B, 1))
-    return {"x0": x0, "y_ref": y_ref, "rgp": rgp_batch(B, rng)}
+    """``test_torch_cuda_common.solve_inputs`` with the JAX package's RGP."""
+    return cuda_common.solve_inputs(B, seed, N, rgp_batch)
 
 
 def trajectory_inputs(B: int, seed: int = 0, N: int = N):
-    """A perturbed (B, N+1, 13) state trajectory (non-unit quaternions
-    included) and (B, N, 4) controls inside the box."""
-    rng = np.random.default_rng(seed)
-    X = np.zeros((B, N + 1, 13))
-    X[..., 3] = 1.0
-    X[..., 2] = 3.0
-    X += 0.2 * rng.standard_normal(X.shape)
-    X[..., 7:10] += rng.uniform(-4.0, 4.0, (B, 1, 3))
-    U = rng.uniform(0.2, 0.7, (B, N, 4))
-    return X, U, rgp_batch(B, rng)
+    """``test_torch_cuda_common.trajectory_inputs`` with the JAX package's RGP."""
+    return cuda_common.trajectory_inputs(B, seed, N, rgp_batch)
 
 
 def gn_step_inputs(B: int, seed: int = 0, N: int = N) -> dict:
-    """One Gauss-Newton step's inputs, f64, through the port's plain
-    linearisation of a perturbed trajectory: the solver, (X, U), the folded
-    drag and the RGP arrays, x0 and the references, and kernel B's inputs
-    J, r, dx0, ex0, gu, lb, ub."""
-    from mpc_quad_ros_tpu_torch.models import fold_drag, make_mpc_dynamics
-    from mpc_quad_ros_tpu_torch.ops.cuda.lin_kernel import linearize_plain
-    from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig, SQPSolver
-
-    X, U, rgp = trajectory_inputs(B, seed, N)
-    rng = np.random.default_rng(seed + 1)
-    x0 = X[:, 0] + 0.05 * rng.standard_normal((B, 13))
-    y_ref = X[:, 1:] + 0.3 * rng.standard_normal((B, N, 13))
-    cfg = MPCConfig(n_nodes=N, t_horizon=0.1 * N, u_ref=float(jax_params().hover_input))
-    solver = SQPSolver(cfg, make_mpc_dynamics(port_params()))
-    aug = fold_drag(interop.rgp_state_from_numpy(rgp)).map(lambda a: a.contiguous())
-    X, U, x0, y_ref = map(t, (X, U, x0, y_ref))
-    xp, J = linearize_plain(solver.f, X, U, aug, cfg.dt)
-    keys = ("r", "dx0", "ex0", "gu", "lb", "ub")
-    out = dict(zip(keys, solver.qp_inputs(X, U, x0, y_ref, y_ref[:, -1], xp)))
-    out = {k: v.contiguous() for k, v in out.items()}
-    return dict(solver=solver, X=X, U=U, aug=aug, rgp=rgp, x0=x0, y_ref=y_ref,
-                J=J.contiguous(), **out)
+    """``test_torch_cuda_common.gn_step_inputs`` with the JAX package's RGP
+    (its parameters are the port's, bitwise the JAX package's)."""
+    return cuda_common.gn_step_inputs(B, seed, N, rgp_batch)
 
 
 def tiled(a) -> np.ndarray:
@@ -129,7 +88,3 @@ def host_library(tmp_dir: pathlib.Path):
     return _build.load_host_library(tmp_dir)
 
 
-def require_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the GPU host)")
-    return torch.device("cuda", 0)

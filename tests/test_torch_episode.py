@@ -9,7 +9,12 @@ operations, so 20 ticks on the accelerating circle at 8 m/s with RGP on
 agree to rounding that the loop carries from tick to tick: x_odom 1e-7 and
 w_odom 1e-8.  The fused loop's ``solve_batch`` runs another IPM (the
 Jacobi-scaled kernel's), held to the JAX loop by
-``tests/test_torch_closed_loop.py``."""
+``tests/test_torch_closed_loop.py``.
+
+Resumed from a carry after 10 ticks on the short circle, with `rgp0` passed
+beside `carry0` the two packages agree to the same tolerances; with
+`carry0` alone the port keeps learning from the carry's RGP (where the JAX
+package flies the nominal model: a recorded deviation)."""
 
 import functools
 
@@ -38,7 +43,7 @@ from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig, SQPSolver
 from mpc_quad_ros_tpu_torch.traj import circle_trajectory_accelerating, states_from_flat_outputs
 from mpc_quad_ros_tpu_torch.utils import reference
 
-from test_torch_common import as_numpy, jax_params, jax_rgp, port_params, require_cuda, rgp_batch, t
+from test_torch_common import as_numpy, jax_params, jax_rgp, port_params, rgp_batch, t
 
 B, TICKS = 2, 20
 FAULT = dict(fault_tick=5, fault_rotors=(1.0, 1.0, 1.0, 0.5))
@@ -176,6 +181,50 @@ def test_resuming_through_the_carry_is_bitwise():
     assert torch.equal(last.x, final.x) and torch.equal(last.solver.U, final.solver.U)
 
 
+@functools.lru_cache(maxsize=None)
+def resumed_runs():
+    """Episode 0 of `inputs()` on the short (3 s) circle: 10 ticks, then 10
+    more resumed from the carry, in the port with `rgp0` passed beside
+    `carry0` and without it, and in the JAX package with it: (the carry at
+    the resume, port with rgp0, port without, JAX with rgp0)."""
+    inp = select(inputs(), 0)
+    traj = circle(8.0, t_max=3.0)
+    cfg, solver = EpisodeConfig(mpc=port_solver().cfg), port_solver()
+    p = interop.quad_params_from_numpy(inp["params"])
+    x0, tr = t(inp["x0"]), t(traj)
+    first, _ = run_episode(cfg, solver, p, x0, tr, 10, interop.rgp_state_from_numpy(inp["rgp"]))
+    _, with_rgp0 = run_episode(cfg, solver, p, x0, tr, 10, rgp0=first.rgp, carry0=first,
+                               start_tick=10)
+    _, without = run_episode(cfg, solver, p, x0, tr, 10, carry0=first, start_tick=10)
+
+    jcfg, js = jax_config()
+    jp, jx0, jtr, jrgp = jax_inputs(inp, traj)
+    jfirst, _ = jax.jit(lambda p, x, tr, r: jax_run_episode(jcfg, js, p, x, tr, 10, r))(
+        jp, jx0, jtr, jrgp)
+    _, jsecond = jax.jit(lambda p, tr, c: jax_run_episode(
+        jcfg, js, p, c.x, tr, 10, rgp0=c.rgp, carry0=c, start_tick=10))(jp, jtr, jfirst)
+    return first, with_rgp0, without, jsecond
+
+
+def test_resume_with_rgp0_matches_jax():
+    """Resumed with rgp0 beside carry0, the two packages agree."""
+    _, with_rgp0, _, jsecond = resumed_runs()
+    check_episode(with_rgp0, jsecond, ticks=10)
+
+
+def test_resume_without_rgp0_keeps_learning():
+    """Resumed from a carry alone, the port reads the carry's RGP and keeps
+    learning (the JAX package would fly the nominal model and freeze the
+    RGP): bitwise the run with rgp0 passed."""
+    first, with_rgp0, without, _ = resumed_runs()
+    assert without.rgp_mu_g_t is not None
+    mu = torch.cat([first.rgp.mu_g[None], without.rgp_mu_g_t])
+    assert ((mu[1:] - mu[:-1]).abs().amax((1, 2)) > 0).all()
+    for k, v in with_rgp0.fields().items():
+        if v is not None:
+            assert torch.equal(getattr(without, k), v), k
+
+
 def test_make_episode_fn_and_gp_aug():
     inp = select(inputs(), 0)
     fn = make_episode_fn(EpisodeConfig(mpc=port_solver().cfg), port_solver(), 3)
@@ -282,30 +331,3 @@ def test_reference_chunk_matches_jax(skip):
         np.testing.assert_array_equal(
             reference.get_reference_chunk(t(traj), i, 10, skip).numpy(),
             np.asarray(jax_reference.get_reference_chunk(jnp.asarray(traj), i, 10, skip)))
-
-
-@pytest.mark.parametrize("path", ["episode", "episode_batch", "hetero"])
-def test_loops_on_cuda_match_cpu_f64(path):
-    """Five ticks of each new card path in f32 against the CPU's f64."""
-    dev = require_cuda()
-    inp, traj, lens, ticks = hetero_inputs()
-    outs = {}
-    for device, dtype in (("cpu", torch.float64), (dev, torch.float32)):
-        to = lambda a: a.to(device, dtype)
-        p = interop.quad_params_from_numpy(inp["params"]).map(to)
-        rgp = interop.rgp_state_from_numpy(inp["rgp"]).map(to)
-        solver = SQPSolver(MPCConfig(u_ref=float(jax_params().hover_input)),
-                           make_mpc_dynamics(port_params().map(to)))
-        cfg = EpisodeConfig(mpc=solver.cfg)
-        x0, tr = to(t(inp["x0"])), to(t(traj))
-        if path == "episode":
-            _, outs[device] = run_episode(cfg, solver, p.map(lambda a: a[0]), x0[0], tr[0], 5,
-                                          rgp.map(lambda a: a[0]))
-        elif path == "episode_batch":
-            _, outs[device] = run_episode_batch(cfg, solver, p, x0, tr, 5, rgp)
-        else:
-            _, outs[device] = run_episode_batch_fused(cfg, solver, p, x0, tr, 5, rgp,
-                                                      traj_len=lens,
-                                                      episode_ticks=torch.tensor((5, 3, 2)))
-    err = (outs[dev].x_odom.double().cpu() - outs["cpu"].x_odom).abs().max().item()
-    assert err < 1e-2

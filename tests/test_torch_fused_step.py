@@ -11,8 +11,8 @@ sqp_fused_kernel.py::fused_sqp_step``) on the CPU, float64.
 - Its shared-memory workspace: kernel B's with J staged and r in place of
   kernel B's two-stage J buffer, under an H100 block's 232,448 B up to
   FUSED_N_MAX = 40, beside kernels B, D and E at the same horizon.
-- On a CUDA device (skipped here): the kernel against the f64 plain version,
-  cold and warm."""
+- On a CUDA device: ``test_torch_cuda_kernels.py`` (JAX-free, so that it
+  collects on the GPU host)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,13 +21,12 @@ import torch
 
 from mpc_quad_ros_tpu.models.augmented import fold_drag as jax_fold_drag
 from mpc_quad_ros_tpu.ops.pallas.sqp_fused_kernel import make_fused_sqp_step
-from mpc_quad_ros_tpu_torch.models import make_mpc_dynamics
 from mpc_quad_ros_tpu_torch.ops import sqp
 from mpc_quad_ros_tpu_torch.ops.cuda import sqp_fused_kernel
 from mpc_quad_ros_tpu_torch.ops.cuda.lin_kernel import model_constants
 
-from test_torch_common import (gn_step_inputs, host_library, jax_params, jax_rgp, ptr,
-                               require_cuda, tiled, untiled)
+from test_torch_common import (gn_step_inputs, host_library, jax_params, jax_rgp, ptr, tiled,
+                               untiled)
 
 N, ITERS = 3, 12
 BOX = ("dx0", "ex0", "gu", "lb", "ub")
@@ -118,19 +117,3 @@ def test_workspace_fits_up_to_fused_n_max(host_lib):
     assert host_lib.mpcq_sqp_step_ws_bytes(n) <= limit < host_lib.mpcq_sqp_step_ws_bytes(50)
     assert (host_lib.mpcq_condense_ws_bytes(n) < host_lib.mpcq_box_qp_ws_bytes(4 * n)
             < host_lib.mpcq_sqp_ws_bytes(n) <= limit)
-
-
-@pytest.mark.parametrize("warm", [False, True])
-def test_cuda_kernel_matches_f64_plain(step, warm):
-    dev = require_cuda()
-    inp, args, duals = step
-    duals = duals if warm else None
-    ref = sqp_fused_kernel.fused_sqp_step_plain(*args, duals)
-    f32 = lambda a: a.float().to(dev) if torch.is_tensor(a) else a
-    p32 = inp["solver"].f.params.map(f32)
-    z, dX, kkt, zl, zu = sqp_fused_kernel.fused_sqp_step(
-        *map(f32, args[:7]), args[7].map(f32), make_mpc_dynamics(p32), *args[9:],
-        duals=None if duals is None else tuple(map(f32, duals)))
-    assert (z.double().cpu() - ref[0]).abs().max() < 4e-2     # the f32 12-iteration floor
-    assert kkt.max().item() <= ref[2].max().item() + 1e-3
-    assert torch.isfinite(zl).all() and (zl > 0).all() and (zu > 0).all()

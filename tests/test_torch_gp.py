@@ -26,8 +26,8 @@ from mpc_quad_ros_tpu_torch import interop
 from mpc_quad_ros_tpu_torch.models import augmented as taug
 from mpc_quad_ros_tpu_torch.models import gp as tgp
 
-from test_torch_common import (as_numpy, jax_params, jax_rgp, port_params, require_cuda,
-                               rgp_batch, t, trajectory_inputs)
+from test_torch_common import (as_numpy, jax_params, jax_rgp, port_params, rgp_batch, t,
+                               trajectory_inputs)
 
 THETA = np.array([[2.5, 3.0, 0.05], [1.5, 2.0, 0.2], [4.0, 10.0, 0.01]])
 
@@ -155,15 +155,3 @@ def test_fold_drag_passes_other_records_through():
     assert taug.fold_drag(other) is other
     with pytest.raises(TypeError, match="augmentation"):
         taug.gp_mean_world(torch.zeros(13, dtype=torch.float64), other)
-
-
-def test_gp_fit_on_cuda_matches_cpu():
-    """The fit on the card (float64, one host transfer an evaluation)
-    against the CPU's."""
-    dev = require_cuda()
-    X, y = drag_samples(0)
-    for d in range(3):
-        cpu = tgp.gp_fit(t(X[d]), t(y[d]))
-        card = tgp.gp_fit(t(X[d]).to(dev), t(y[d]).to(dev))
-        assert card.theta.device.type == "cuda"
-        assert rel(card.theta.cpu(), cpu.theta) <= 1e-6

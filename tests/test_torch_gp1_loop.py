@@ -42,7 +42,7 @@ from mpc_quad_ros_tpu_torch.models import fold_drag, make_mpc_dynamics
 from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig, SQPSolver
 from mpc_quad_ros_tpu_torch.traj import circle_trajectory_accelerating, states_from_flat_outputs
 
-from test_torch_common import as_numpy, jax_params, jax_rgp, port_params, require_cuda, rgp_batch, t
+from test_torch_common import as_numpy, jax_params, jax_rgp, port_params, rgp_batch, t
 
 TICKS = 10
 B = 4
@@ -195,23 +195,3 @@ def test_gp2_beside_a_gp_is_gp2_and_unknown_records_raise():
         run_episode_batch_fused(*args, gp_aug=object())
     with pytest.raises(TypeError, match="augmentation"):
         run_episode(*args, gp_aug=jax_rgp(rgp_batch(2, np.random.default_rng(3))))
-
-
-@pytest.mark.parametrize("path", ["episode_batch", "fused"])
-def test_gp1_loops_on_cuda_match_cpu_f64(path):
-    """Five ticks of each gp1 loop on the card in f32 (the GP folded in f64,
-    then cast) against the CPU's f64."""
-    dev = require_cuda()
-    pb, x0, traj = batch_inputs()
-    outs = {}
-    for device, dtype in (("cpu", torch.float64), (dev, torch.float32)):
-        to = lambda a: a.to(device, dtype)
-        p = interop.quad_params_from_numpy(pb).map(to)
-        gp = interop.gp_state_from_numpy(gp_state()).map(lambda a: a.to(device))
-        solver = SQPSolver(MPCConfig(u_ref=float(jax_params().hover_input)),
-                           make_mpc_dynamics(port_params().map(to)))
-        loop = run_episode_batch if path == "episode_batch" else run_episode_batch_fused
-        _, outs[device] = loop(EpisodeConfig(mpc=solver.cfg), solver, p, to(t(x0)), to(t(traj)), 5,
-                               gp_aug=gp)
-    err = (outs[dev].x_odom.double().cpu() - outs["cpu"].x_odom).abs().max().item()
-    assert err < 1e-2

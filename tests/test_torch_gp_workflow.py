@@ -233,19 +233,6 @@ def test_training_cli_and_plots(log_path, tmp_path):
     assert {"training_data.pdf", "rgp_fit.pdf"} <= set(os.listdir(tmp_path / "b"))
 
 
-def test_entry_points_default_to_the_card(log_path, tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the defaults run there")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        GPEnsemble.fromrange([(-1.0, 1.0)] * 3, 4)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ttrain.train_gp(log_path, str(tmp_path / "c"), 4, plot=False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ttrain.train_rgp(log_path, str(tmp_path / "c"), 4, plot=False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ttrain.main(["gp", "--data", log_path, "--save_dir", str(tmp_path / "c"), "--no_plot"])
-
-
 def test_checkpoint_resume_is_bitwise(tmp_path):
     """Ten ticks, the carry (with its RGP posterior and C_g) through a save
     and a load, ten more: bitwise the twenty-tick run."""

@@ -7,7 +7,8 @@
 - The kernel's own source (``csrc/lin_kernel.cu``) built with g++ for the host
   in float64, against the plain version to 1e-12: the same model run on dual
   numbers, with the drag's diagonal-Jacobian rule.
-- On a CUDA device (skipped here): the kernel against the plain version."""
+- On a CUDA device: ``test_torch_cuda_kernels.py`` (JAX-free, so that it
+  collects on the GPU host)."""
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +24,8 @@ from mpc_quad_ros_tpu_torch import interop
 from mpc_quad_ros_tpu_torch.models import fold_drag, make_mpc_dynamics
 from mpc_quad_ros_tpu_torch.ops.cuda import lin_kernel
 
-from test_torch_common import (N, host_library, jax_params, jax_rgp, port_params,
-                               require_cuda, t, trajectory_inputs)
+from test_torch_common import (N, host_library, jax_params, jax_rgp, port_params, t,
+                               trajectory_inputs)
 
 B = 6
 DT = 0.1
@@ -86,19 +87,3 @@ def test_model_constants_match_jax_kernel_scalars():
     assert c[16] == 1.0 / float(jp.mass)
     assert c[18] == -(float(jp.payload_mass) / float(jp.mass)) * float(jp.g[2])
     assert c[25:] == [DT, DT / 2, DT / 6]
-
-
-def test_cuda_kernel_matches_plain():
-    dev = require_cuda()
-    X, U, rgp = trajectory_inputs(256, seed=3)
-    f = make_mpc_dynamics(port_params().map(lambda a: a.float().to(dev)))
-    aug = fold_drag(interop.rgp_state_from_numpy(rgp, device=dev, dtype=torch.float32)).map(
-        lambda a: a.contiguous())
-    Xc, Uc = t(X).float().to(dev), t(U).float().to(dev)
-    xp, J = lin_kernel.linearize(Xc, Uc, aug, f, DT)
-    xp_p, J_p = lin_kernel.linearize_plain(f, Xc, Uc, aug, DT)
-    # f32: positions ~10 m (ulp 1e-6) through 4 RK4 stages; J entries ~10
-    assert (xp - xp_p).abs().max() <= 1e-5
-    assert (J - J_p).abs().max() <= 1e-4
-    with pytest.raises(TypeError):
-        lin_kernel.linearize(Xc.double(), Uc.double(), aug.map(lambda a: a.double()), f, DT)

@@ -1,7 +1,10 @@
-"""Package-level properties of the PyTorch port: it imports without JAX, CPU
-tensors take the plain versions (no kernel launch), parameters cross over
-from the JAX package intact, the CUDA wrappers refuse what the kernels do
-not take, and ``chip_smoke.py`` fails where there is no GPU."""
+"""Package-level properties of the PyTorch port: it imports with JAX and the
+JAX package blocked (every module, the run CLI's by name), and so do the
+CUDA-gated test modules; CPU tensors take the plain versions (no kernel
+launch), parameters cross over from the JAX package intact, and
+``chip_smoke.py`` fails alone.  The CUDA wrappers' checks and the run
+without a GPU are in ``test_torch_cuda_kernels.py`` and
+``test_torch_cuda_paths.py``."""
 
 import os
 import pathlib
@@ -15,11 +18,10 @@ import torch
 
 from mpc_quad_ros_tpu_torch import interop
 from mpc_quad_ros_tpu_torch.models import fold_drag, make_mpc_dynamics
-from mpc_quad_ros_tpu_torch.ops.cuda import _build, lin_kernel, sqp_fused_kernel
-from mpc_quad_ros_tpu_torch.ops.sqp import SMALL_BATCH, MPCConfig, SQPSolver, init_carry
+from mpc_quad_ros_tpu_torch.ops.cuda import lin_kernel, sqp_fused_kernel
+from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig, SQPSolver, init_carry
 
-from test_torch_common import (as_numpy, jax_params, jax_rgp, port_params, require_cuda,
-                               rgp_batch, solve_inputs, t)
+from test_torch_common import as_numpy, jax_params, jax_rgp, port_params, rgp_batch, solve_inputs, t
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -30,17 +32,49 @@ def _clean_env():
     return env
 
 
+# a meta-path finder that refuses JAX and the JAX package, installed before
+# anything else is imported
+BLOCK_JAX = (
+    "import sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'mpc_quad_ros_tpu'):\n"
+    "            raise ImportError(f'{name} is blocked')\n"
+    "sys.meta_path.insert(0, Block())\n")
+# the run CLI's modules, imported by name besides the walk of the package
+ENTRY_MODULES = ("run", "compare", "explore", "explorer", "traj", "traj.native_minsnap",
+                 "io.viz", "io.profiling", "io.config", "utils.metrics")
+
+
+def _run_blocked(code: str, cwd=REPO):
+    out = subprocess.run([sys.executable, "-c", BLOCK_JAX + code], cwd=cwd, env=_clean_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return out.stdout
+
+
 def test_import_leaves_jax_out():
-    code = ("import importlib, pkgutil, sys\n"
+    code = ("import importlib, pkgutil\n"
             "import mpc_quad_ros_tpu_torch as p\n"
+            f"for m in {ENTRY_MODULES!r}:\n"
+            "    importlib.import_module(p.__name__ + '.' + m)\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'mpc_quad_ros_tpu.')))\n"
             "print('LEAKED', bad) if bad else print('CLEAN')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.strip().endswith("CLEAN"), out.stdout
+    assert _run_blocked(code).strip().endswith("CLEAN")
+
+
+def test_cuda_test_modules_import_without_jax():
+    """The CUDA-gated test modules collect where JAX is absent."""
+    code = ("import importlib\n"
+            "sys.path.insert(0, 'tests')\n"
+            "for m in ('test_torch_cuda_common', 'test_torch_cuda_kernels', 'test_torch_cuda_paths'):\n"
+            "    importlib.import_module(m)\n"
+            "print('CLEAN')\n")
+    assert _run_blocked(code).strip().endswith("CLEAN")
+    with pytest.raises(AssertionError, match="blocked"):
+        _run_blocked("import sys; sys.path.insert(0, 'tests'); import test_torch_common\n")
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -85,45 +119,9 @@ def test_interop_round_trip(batched):
     assert float(p.hover_input.flatten()[0]) == float(jnp.asarray(jax_params().hover_input))
 
 
-def test_cuda_wrappers_refuse_other_inputs():
-    """What reaches a kernel is checked first: dtype, then device."""
-    x = torch.zeros(2, 11, 13, dtype=torch.float64)
-    with pytest.raises(TypeError):
-        _build.check_cuda_inputs("k", {"X": x}, {"X": (2, 11, 13)})
-    with pytest.raises(ValueError):
-        _build.check_cuda_inputs("k", {"X": x.float()}, {"X": (2, 11, 13)})
-    with pytest.raises(RuntimeError):
-        _build.check_status("k", 700)
-
-
-def test_chip_smoke_fails_without_a_gpu():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=_clean_env(),
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode != 0
-    assert '"ok": true' not in out.stdout
-
-
 def test_chip_smoke_fails_alone(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
-
-
-def test_cuda_solve_runs_both_kernels():
-    dev = require_cuda()
-    lin_kernel.linearize.launches = 0
-    sqp_fused_kernel.fused_sqp_from_J.launches = 0
-    inp = solve_inputs(SMALL_BATCH, seed=32)     # smaller batches take kernels A, J, E
-    p = port_params().map(lambda a: a.float().to(dev))
-    cfg = MPCConfig(u_ref=float(p.hover_input))
-    solver = SQPSolver(cfg, make_mpc_dynamics(p))
-    x0, y_ref = t(inp["x0"]).float().to(dev), t(inp["y_ref"]).float().to(dev)
-    rgp = interop.rgp_state_from_numpy(inp["rgp"], device=dev, dtype=torch.float32)
-    _, sol = solver.solve_batch(init_carry(cfg, x0), x0, y_ref, y_ref[:, -1], rgp)
-    torch.cuda.synchronize()
-    assert torch.isfinite(sol.U).all()
-    assert lin_kernel.linearize.launches == 1 and sqp_fused_kernel.fused_sqp_from_J.launches == 1

@@ -36,8 +36,8 @@ from mpc_quad_ros_tpu_torch.ops import sqp
 from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig, SQPSolver, init_carry
 from mpc_quad_ros_tpu_torch.utils.rotations import unit_quat
 
-from test_torch_common import (as_numpy, jax_params, jax_rgp, port_params, require_cuda,
-                               solve_inputs, t, trajectory_inputs)
+from test_torch_common import (as_numpy, jax_params, jax_rgp, port_params, solve_inputs, t,
+                               trajectory_inputs)
 
 B = 4
 PRESETS = ("default_params", "default_v1_params", "hummingbird_params", "crazyflie_params")
@@ -225,20 +225,3 @@ def test_disturbed_plant_and_normalised_rk4_match_jax():
     np.testing.assert_allclose(np.linalg.norm(ours[:, 3:7], axis=-1), 1.0, rtol=0, atol=1e-14)
     np.testing.assert_allclose(unit_quat(t(x[:, 3:7])).numpy(),
                                np.asarray(jax_unit_quat(jnp.asarray(x[:, 3:7]))), rtol=0, atol=1e-15)
-
-
-def test_solve_on_cuda_matches_cpu_f64():
-    """The card's f32 solve (kernels A and J, the unscaled IPM in tensor
-    code) against the CPU's f64 solve, at the bound of the card's checks."""
-    dev = require_cuda()
-    inp = solve_inputs(B, seed=39)
-    sols = {}
-    for device, dtype in (("cpu", torch.float64), (dev, torch.float32)):
-        p = params.hummingbird_params(torch.float32).map(lambda a: a.to(device, dtype))
-        cfg = MPCConfig(u_ref=float(p.hover_input))
-        solver = SQPSolver(cfg, make_mpc_dynamics(p))
-        cast = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(device, dtype)
-        x0, y_ref = cast(inp["x0"]), cast(inp["y_ref"])
-        rgp = interop.rgp_state_from_numpy(inp["rgp"]).map(lambda a: a.float().to(device, dtype))
-        _, sols[device] = solver.solve(init_carry(cfg, x0), x0, y_ref, y_ref[:, -1], rgp)
-    assert (sols[dev].U.double().cpu() - sols["cpu"].U).abs().max().item() < 4e-2

@@ -24,9 +24,8 @@
   each, so these two are in the slow tier; the kernels they run are held
   against the Pallas kernels in tier 1 (test_torch_condense_kernel,
   test_torch_qp_kernel, test_torch_fused_step).
-- On a CUDA device (skipped here): at B=128 "split" launches kernels A, D
-  and E only, "fused" kernel F only; at B=64 every pipeline launches A, J and
-  E only; warm and cold."""
+- On a CUDA device: ``test_torch_cuda_paths.py`` (JAX-free, so that it
+  collects on the GPU host)."""
 
 import dataclasses
 
@@ -48,7 +47,7 @@ from mpc_quad_ros_tpu_torch.ops.cuda import (condense_kernel, lin_kernel, qp_ker
 from mpc_quad_ros_tpu_torch.ops.sqp import (FUSED_N_MAX, SMALL_BATCH, MPCConfig, SQPSolver,
                                             init_carry)
 
-from test_torch_common import jax_params, jax_rgp, port_params, require_cuda, solve_inputs, t
+from test_torch_common import jax_params, jax_rgp, port_params, solve_inputs, t
 
 B = 8
 COUNTERS = (lin_kernel.linearize, sqp_fused_kernel.fused_sqp_from_J,
@@ -228,28 +227,3 @@ def test_fused_cold_matches_jax_solve_batch():
     _, jsol = _jax_solve(inp, pipeline="fused")
     _, sol = _solve(inp, n_nodes=N, t_horizon=0.1 * N, pipeline="fused")
     np.testing.assert_allclose(sol.U.numpy(), np.asarray(jsol.U), rtol=0, atol=1e-9)
-
-
-@pytest.mark.parametrize("warm", [False, True])
-@pytest.mark.parametrize("pipeline, batch, launched", [
-    ("split", SMALL_BATCH, [1, 0, 0, 1, 1, 0, 0]),
-    ("fused", SMALL_BATCH, [0, 0, 0, 0, 0, 1, 0]),
-    ("hybrid", 64, [1, 0, 0, 0, 1, 0, 1])])
-def test_cuda_pipeline_launches_its_kernels(pipeline, batch, launched, warm):
-    dev = require_cuda()
-    inp = solve_inputs(batch, seed=87)
-    p32 = port_params().map(lambda a: a.float().to(dev))
-    for fn in COUNTERS:
-        fn.launches = 0
-    kw = dict(pipeline=pipeline, warm_start_duals=warm)
-    carry, sol = _solve(inp, params=p32, **kw)
-    _, sol = _solve(inp, carry, params=p32, **kw)
-    torch.cuda.synchronize()
-    assert [fn.launches for fn in COUNTERS] == [2 * n for n in launched]
-    # U + z in f32 may pass the box by an ulp: z = clip(z', lb/s, ub/s) s
-    # rounds, in every pipeline and in the JAX kernels alike
-    assert torch.isfinite(sol.U).all() and -1e-6 <= sol.U.min() and sol.U.max() <= 1 + 1e-6
-    # the f32 card's first solve against the f64 plain versions on the CPU
-    _, ref = _solve(inp, **kw)
-    _, first = _solve(inp, params=p32, **kw)
-    assert (first.U.double().cpu() - ref.U).abs().max() < 4e-2

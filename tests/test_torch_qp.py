@@ -17,18 +17,10 @@ import torch
 from mpc_quad_ros_tpu.ops import qp as jax_qp
 from mpc_quad_ros_tpu_torch.ops import qp
 
-from test_torch_common import require_cuda, t
+from test_torch_common import t
+from test_torch_cuda_common import box_qp
 
 B = 6
-
-
-def box_qp(nz: int, seed: int) -> dict:
-    rng = np.random.default_rng(seed)
-    G = rng.standard_normal((B, nz, nz))
-    H = G @ G.transpose(0, 2, 1) / nz + 0.1 * np.eye(nz)
-    return dict(H=H, g=3.0 * rng.standard_normal((B, nz)), lb=np.full((B, nz), -0.16),
-                ub=np.full((B, nz), 0.84), zl0=rng.uniform(0.0, 2.0, (B, nz)),
-                zu0=rng.uniform(0.0, 2.0, (B, nz)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,13 +92,3 @@ def test_a_failed_scenario_leaves_the_others_unchanged(solver, fault):
     keep = torch.arange(B) != 2
     assert torch.isnan(z_bad[2]).any()
     assert torch.equal(z_bad[keep], z[keep])
-
-
-def test_pdip_on_cuda_matches_cpu_f64():
-    """The unscaled IPM in f32 on the card against f64 on the CPU."""
-    dev = require_cuda()
-    p = box_qp(40, seed=70)
-    args = [p[k] for k in ("H", "g", "lb", "ub")]
-    z = qp.solve_box_qp_pdip(*(t(a).float().to(dev) for a in args), 12)
-    z_d = qp.solve_box_qp_pdip(*map(t, args), 12)
-    assert (z.double().cpu() - z_d).abs().max().item() < 4e-2

@@ -10,8 +10,8 @@ on the CPU, float64, on the condensed QPs of perturbed trajectories.
 - The kernel's own source built with g++ for the host against the plain
   version (1e-9), cold and warm, with NaN isolation between scenarios.
 - The wrapper: one warm dual alone is refused.
-- On a CUDA device (skipped here): the kernel against the f64 plain version,
-  cold and warm, and its shared-memory ceiling."""
+- On a CUDA device: ``test_torch_cuda_kernels.py`` (JAX-free, so that it
+  collects on the GPU host)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +22,7 @@ from mpc_quad_ros_tpu.ops.pallas.qp_kernel import solve_box_qp_pdip_pallas
 from mpc_quad_ros_tpu_torch.ops.cuda import qp_kernel
 from mpc_quad_ros_tpu_torch.ops.cuda.condense_common import condense_from_J
 
-from test_torch_common import gn_step_inputs, host_library, ptr, require_cuda
+from test_torch_common import gn_step_inputs, host_library, ptr
 
 B, N, ITERS = 6, 5, 12
 
@@ -88,24 +88,3 @@ def test_one_dual_alone_is_refused(qp):
     box, duals = qp
     with pytest.raises(ValueError, match="both"):
         qp_kernel.solve_box_qp_pdip_batch(*box, ITERS, duals[0], None)
-
-
-@pytest.mark.parametrize("warm", [False, True])
-def test_cuda_kernel_matches_f64_plain(qp, warm):
-    dev = require_cuda()
-    box, duals = qp
-    duals = duals if warm else (None, None)
-    z_d, _, _ = qp_kernel.ipm_box_solve(*box, ITERS, *duals)
-    f32 = lambda a: None if a is None else a.float().to(dev)
-    z, zl, zu = qp_kernel.solve_box_qp_pdip_batch(*map(f32, box), ITERS, *map(f32, duals))
-    assert (z.double().cpu() - z_d).abs().max() < 4e-2      # the f32 12-iteration floor
-    assert torch.isfinite(zl).all() and (zl > 0).all() and (zu > 0).all()
-
-
-def test_cuda_kernel_refuses_past_its_ceiling():
-    dev = require_cuda()
-    nz = 215             # 232,448 B a block holds kernel E's workspace up to nz = 214
-    H = torch.eye(nz, device=dev).expand(2, nz, nz).contiguous()
-    v = torch.zeros(2, nz, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        qp_kernel.solve_box_qp_pdip_batch(H, v, v - 1, v + 1, ITERS)

@@ -37,25 +37,7 @@ from mpc_quad_ros_tpu_torch.ops import sqp
 from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig, SQPSolver, init_carry
 
 from test_torch_common import jax_params, jax_rgp, port_params, solve_inputs, t
-
-NX, NU = 13, 4
-Q = (10.0, 10.0, 10.0, 0.1, 0.1, 0.1, 0.1, 0.05, 0.05, 0.05, 0.05, 0.05, 0.05)
-RD = (0.1,) * NU
-PT = tuple(2.0 * v for v in Q)
-LB, UB = -0.16, 0.3
-
-
-def random_ocp(B: int, N: int, seed: int = 0) -> dict:
-    """A, B near the identity / small, the bounds [-0.16, 0.3] on du: most
-    bounds end active (as in tests/test_riccati_kernel.py)."""
-    rng = np.random.default_rng(seed)
-    return dict(A=rng.normal(0, 0.08, (B, N, NX, NX)) + np.eye(NX),
-                Bm=rng.normal(0, 0.15, (B, N, NX, NU)),
-                c=rng.normal(0, 0.02, (B, N, NX)), dx0=rng.normal(0, 0.05, (B, NX)),
-                qlin=rng.normal(0, 0.5, (B, N, NX)), rlin=rng.normal(0, 0.1, (B, N, NU)),
-                plin=rng.normal(0, 0.5, (B, NX)),
-                lb=np.full((B, N, NU), LB), ub=np.full((B, N, NU), UB))
-
+from test_torch_cuda_common import LB, NU, NX, PT, Q, RD, UB, random_ocp  # noqa: F401
 
 def jax_ipm(o: dict, iters: int = 12):
     """The JAX package's oracle, vmapped over the scenarios."""

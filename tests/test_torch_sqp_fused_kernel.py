@@ -12,8 +12,8 @@ the CPU, float64, on the QP subproblems of perturbed trajectories.
   X + d + M z, and the kernel's own source built with g++ for the host
   against the plain step (1e-9), cold and warm-started from the cold
   solve's duals, with NaN isolation between scenarios.
-- On a CUDA device (skipped here): the kernel against the f64 plain version,
-  cold and warm."""
+- On a CUDA device: ``test_torch_cuda_kernels.py`` (JAX-free, so that it
+  collects on the GPU host)."""
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +32,7 @@ from mpc_quad_ros_tpu_torch.ops.cuda.condense_common import condense_from_J
 from mpc_quad_ros_tpu_torch.ops.cuda.qp_kernel import ipm_box_solve
 from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig
 
-from test_torch_common import N, host_library, jax_params, jax_rgp, require_cuda, t, trajectory_inputs
+from test_torch_common import N, host_library, jax_params, jax_rgp, t, trajectory_inputs
 
 B = 6
 ITERS = 12
@@ -158,25 +158,3 @@ def test_kernel_source_on_host_warm_matches_plain(qp, host_lib):
     z_warm = sqp_fused_kernel.fused_sqp_from_J_plain(*_args(port), q, p, rw, ITERS, duals)[0]
     assert not torch.equal(z_warm, z_cold)          # the duals were used
     _host_matches_plain_and_isolates(host_lib, port, q, p, rw, duals)
-
-
-@pytest.mark.parametrize("warm", [False, True])
-def test_cuda_kernel_matches_f64_plain(qp, warm):
-    dev = require_cuda()
-    port, _, (q, p, rw) = qp
-    args = _args(port)
-    duals = _cold_duals(port, q, p, rw) if warm else None
-    z_d, dX_d, kkt_d, zl_d, zu_d = sqp_fused_kernel.fused_sqp_from_J_plain(
-        *args, q, p, rw, ITERS, duals)
-    f32 = lambda a: a.float().to(dev)
-    z, dX, kkt, zl, zu = sqp_fused_kernel.fused_sqp_from_J(
-        *map(f32, args), q, p, rw, ITERS, duals=None if duals is None else tuple(map(f32, duals)))
-    # the 12-iteration f32 IPM floor on z; on the max KKT, 1e-3 over the
-    # oracle's.  Warm-started from the duals of the same QP the f64 oracle
-    # converges (max KKT ~1e-6), and the f32 KKT sits at its own rounding
-    # floor: terms of Hz + g reach ~1e4, and an H100 run of kernel B at
-    # B=65536 read 2.9e-3 over the scenarios the f64 oracle solves to 1e-4.
-    floor = 3e-3 if warm else 0.0
-    assert (z.double().cpu() - z_d).abs().max() < 4e-2
-    assert kkt.max().item() <= max(kkt_d.max().item(), floor) + 1e-3
-    assert torch.isfinite(zl).all() and (zl > 0).all() and (zu > 0).all()
