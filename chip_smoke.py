@@ -37,8 +37,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    B=1024 ("pdip" and "projected_newton" at N=10, "riccati" at N=40) and
    ``solve_batch`` at the ROS shapes (N=5; 20 basis vectors a axis) against
    their f64 CPU solves, with NaN isolation; the per-scenario f32 IPM's lost
-   scenarios from N=16 to 31 (B=16384); one episode on the CPU in f64 (50
-   ticks), the reference of phase 9's episode; then the gp1 workflow
+   scenarios from N=16 to 31 (B=16384); kernels A and J on the ROS node's
+   own tick inputs (B=1: the gp2 node at N=5 with 20 basis vectors a axis,
+   and hello_world's crazyflie node at N=10 with no drag model, each 40
+   ticks into its flight) against their f32 and f64 plain versions, by
+   kernel A's and kernel J's rules; one episode on the CPU in f64 (50
+   ticks), the reference of phase 9's episode, and the ROS node's first 170
+   ticks on the CPU in f64, the reference of its card flight; then the gp1
+   workflow
    (``bench/gp1_workflow.py``): the gp0 training flight of the closed loop's
    fleet (16384 x 100 ticks, fused loop), episode 0's log, ``DataLoaderGP``,
    the fit (``train_gp``, float64 on the card) saved and read back bitwise,
@@ -79,7 +85,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    on gpe 0, 1, 2 at v_max 4, 8, 12 m/s, 30 ticks (gpe 1 the gp1
    workflow's model; three batches of 3, the small-batch step: kernels A, J,
    E); ``io/profiling.py::profile_solver_phases`` at B=65536, N=10 with RGP
-   drag (kernels A, D, E and the hybrid solve, A and B);
+   drag (kernels A, D, E and the hybrid solve, A and B); then the ROS node
+   (``node.py``, each path kernels A and J): ``ControllerNode`` at the
+   reference's ROS shapes (hummingbird, gp2 with 20 basis vectors a axis,
+   N=5, 100 Hz) flown by ``SimLoop`` from the ground (the bootstrap line to
+   hover, then the circle) for 500 ticks, each tick's wall time, the
+   compute's, the tracking error, the line-to-circle passage, held to the
+   same flight on the CPU in f64 (its first 170 ticks, flown before the
+   card paths: the first 5 logged states within 1e-2, the mean tracking
+   error within 10 %); the crazyflie's cmdPosition climb with the onboard
+   controller's stand-in and the plant on the card (finished in the 1 m
+   ball); the trajectory service and the commands over localhost sockets
+   (within 0.5 m of the line's end, one command received a control tick);
+   ``hello_world`` (both phases within 0.05 m);
 10. the "split" and "fused" slices: the N=10 slice's chained solves through
     kernels A, D, E and through kernel F alone;
 11. the warm-dual regulation chain (``bench/regulation.py``) at B=65536, 40
@@ -118,8 +136,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 The launch counters are reset just before each path (the gp1 workflow's
 training path in 7, phases 8-9 with the episode, the episode batch, the
-heterogeneous batch, the two gp1 flights, the run CLI, min-snap, the matrix
-and the profile each a path of its own, 10 split, 10 fused, 11, 12, and the
+heterogeneous batch, the two gp1 flights, the run CLI, min-snap, the matrix,
+the profile, the node, its cmdPosition climb, its sockets and hello_world
+each a path of its own, 10 split, 10 fused, 11, 12, and the
 measured parts of 14-20) and read just
 after; each
 path must have launched its kernels and no other.  Every chained solve is
@@ -149,6 +168,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mpc_quad_ros_tpu_torch import compare, run  # noqa: E402
+from mpc_quad_ros_tpu_torch import hello_world as hello  # noqa: E402
+from mpc_quad_ros_tpu_torch import node as ros  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench import (bounds, gp1_workflow, headline,  # noqa: E402
                                            per_scenario, phases, probe_hybrid, suite)
 from mpc_quad_ros_tpu_torch.bench.closed_loop import (closed_loop, hetero_closed_loop,  # noqa: E402
@@ -159,9 +180,12 @@ from mpc_quad_ros_tpu_torch.bench.operating_point import N_BASIS, operating_poin
 from mpc_quad_ros_tpu_torch.bench.regulation import regulation_chain, regulation_setup  # noqa: E402
 from mpc_quad_ros_tpu_torch.io import SimConfig, load_dict  # noqa: E402
 from mpc_quad_ros_tpu_torch.io.profiling import profile_solver_phases  # noqa: E402
+from mpc_quad_ros_tpu_torch.io.transport import (TcpPublisher, TcpRpcClient,  # noqa: E402
+                                                 TcpRpcServer, TcpSubscriber)
 from mpc_quad_ros_tpu_torch.loop import run_episode_batch_fused  # noqa: E402
-from mpc_quad_ros_tpu_torch.models import (fold_drag, gp_mean_world,  # noqa: E402
-                                           hummingbird_params, make_mpc_dynamics, rgp_init)
+from mpc_quad_ros_tpu_torch.models import (crazyflie_params, fold_drag,  # noqa: E402
+                                           gp_mean_world, hummingbird_params,
+                                           make_mpc_dynamics, rgp_init)
 from mpc_quad_ros_tpu_torch.ops import qp_kkt_residual, sqp  # noqa: E402
 from mpc_quad_ros_tpu_torch.ops.cuda import (_build, condense_kernel, lin_kernel,  # noqa: E402
                                              qp_kernel, riccati_kernel, sqp_fused_kernel)
@@ -299,6 +323,30 @@ MATRIX_V, MATRIX_TICKS = (4, 8, 12), 30
 # The paper's learning metric: |cov(v, e)| of gp0 over gp2's, per axis, the
 # JAX package's bound on x and y (tests/test_paper_metrics.py).
 PAPER_RATIO_MIN = 1.5
+# The ROS node (node.py) at the reference's ROS shapes: the hummingbird, gp2
+# (the online RGP, 20 basis vectors a axis), N=5 over 1 s, 100 Hz odometry,
+# v_max and a_max 10.  It starts on the ground at the origin, so the
+# bootstrap line to hover (150 ticks) runs first, then the default circle,
+# cut at NODE_TICKS odometry ticks (~20 s on the card).  Its reference is the
+# same flight on the CPU in float64 (the plain versions) through
+# NODE_CPU_TICKS: the card's first 5 logged states within 1e-2 of it (the
+# loops' rule) and its mean tracking error over the CPU run's logged ticks
+# within EPISODE_ERR_REL_TOL of the CPU run's (the one-drone rule).
+NODE_TICKS, NODE_CPU_TICKS = 500, 170
+# kernels A and J are held to their plain versions on the tick after this
+# many of a node's (phase_node_kernels)
+NODE_KERNEL_TICKS = 40
+NODE_X_TOL = 1e-2
+NODE_X0 = np.array([0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0], dtype=float)
+NODE_HOVER = np.array([0, 0, 3, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0], dtype=float)
+# the cmdPosition climb (the crazyflie, the onboard controller's stand-in
+# against the plant) and the line flown over sockets: the JAX package's tests'
+# (tests/test_node.py, tests/test_transport.py)
+CLIMB_END, SOCKET_END = np.array([0.0, 0.0, 3.8]), np.array([1.5, 0.0, 3.0])
+SOCKET_TOL = 0.5
+# hello_world's phases must end within this of their targets
+# (tests/test_hello_world.py)
+HELLO_TOL = 0.05
 T0 = time.perf_counter()
 
 
@@ -1501,6 +1549,258 @@ def phase_profile(device) -> dict:
     return res
 
 
+def node_flight(device, dtype, ticks: int) -> tuple:
+    """The gp2 node at the ROS shapes from the ground, flown by ``SimLoop``
+    for `ticks` odometry ticks: (node, loop, published commands)."""
+    published = []
+    p = hummingbird_params(dtype=torch.float64)
+    node = ros.ControllerNode(p, ros.TrajectoryServer(), publish_control=published.append,
+                              use_gp=2, dtype=dtype, device=device)
+    loop = ros.SimLoop(node, p, NODE_X0)
+    loop.run(max_ticks=ticks)
+    return node, loop, published
+
+
+def node_log(node) -> tuple:
+    """The node's logged states and their position tracking errors."""
+    d = node.logger.dictionary
+    x = np.asarray(d["x_odom"])
+    return x, np.linalg.norm(x[:, :3] - np.asarray(d["x_ref"])[:, :3], axis=1)
+
+
+def phase_node_cpu_f64() -> dict:
+    """The node's flight on the CPU in f64 through NODE_CPU_TICKS, the card
+    flight's reference (run before the card paths, whose plain versions are
+    fenced off)."""
+    t0 = time.perf_counter()
+    node, _, _ = node_flight("cpu", torch.float64, NODE_CPU_TICKS)
+    x, err = node_log(node)
+    row = {"ticks": NODE_CPU_TICKS, "logged": int(x.shape[0]), "err_mean_m": float(err.mean()),
+           "seconds": time.perf_counter() - t0}
+    emit("node_cpu_f64", **row)
+    check(x.shape[0] >= 5 and np.isfinite(x).all(), f"node on the CPU: {row}")
+    return {**row, "x": x}
+
+
+def phase_node(device, ref: dict) -> dict:
+    """The ROS node on the card: the bootstrap line, then the circle; each
+    tick's wall time (host clock; the state comes back to the host each
+    tick), the compute's (``elapsed_during_mpc``, after a synchronize), the
+    tracking error, and the card's flight against the CPU's f64."""
+    node, loop, published = node_flight(device, torch.float32, NODE_TICKS)
+    x, err = node_log(node)
+    d = node.logger.dictionary
+    n_ref = ref["logged"]
+    motors = np.stack([c.motors for c in published])
+    tick_ms = np.asarray(loop.tick_s) * 1e3
+    mpc_ms = np.asarray(d["elapsed_during_mpc"]) * 1e3
+    x_vs_cpu = float(np.abs(x[:5] - ref["x"][:5]).max())
+    err_ref = float(err[:n_ref].mean())
+    row = {"ticks": len(loop.tick_s), "bootstrap_ticks": len(loop.tick_s) - int(x.shape[0]),
+           "logged": int(x.shape[0]), "commands": len(published),
+           "tick_p50_ms": float(np.median(tick_ms)), "tick_max_ms": float(tick_ms.max()),
+           "elapsed_during_mpc_p50_ms": float(np.median(mpc_ms)),
+           "elapsed_during_mpc_max_ms": float(mpc_ms.max()),
+           "err_mean_m": float(err.mean()), "err_max_m": float(err.max()),
+           "finite": bool(np.isfinite(x).all() and np.isfinite(np.asarray(d["w_odom"])).all()
+                          and np.isfinite(motors).all()),
+           "motors_min": float(motors.min()), "motors_max": float(motors.max()),
+           "doing_a_line": node.doing_a_line, "trajectory_len": len(node.x_trajectory),
+           "rgp_on": str(node.rgp_state.mu_g.device),
+           "x_first5_vs_cpu_f64": x_vs_cpu, "cpu_logged": n_ref, "err_mean_first_m": err_ref,
+           "err_mean_first_m_cpu_f64": ref["err_mean_m"],
+           "err_rel_vs_cpu_f64": abs(err_ref - ref["err_mean_m"]) / ref["err_mean_m"],
+           "tol_x": NODE_X_TOL, "tol_rel": EPISODE_ERR_REL_TOL}
+    emit("node", **row)
+    check(row["ticks"] == NODE_TICKS and row["commands"] == NODE_TICKS, f"node: ticks {row}")
+    check(row["finite"], f"node: non-finite state or command {row}")
+    check(row["motors_min"] >= 0.0 and row["motors_max"] <= 1.0, f"node: motors left [0, 1] {row}")
+    # the state machine passed from the bootstrap line to the circle (30 s
+    # at 100 Hz)
+    check(row["bootstrap_ticks"] > 0 and not node.doing_a_line and row["trajectory_len"] == 3000,
+          f"node: no passage from the line to the circle {row}")
+    check(x_vs_cpu < NODE_X_TOL, f"node: first states {x_vs_cpu} off the CPU f64 flight's")
+    check(row["err_rel_vs_cpu_f64"] <= EPISODE_ERR_REL_TOL,
+          f"node: tracking error not within {EPISODE_ERR_REL_TOL} of the CPU f64 flight's {row}")
+    return row
+
+
+def phase_node_position(device) -> dict:
+    """The crazyflie in cmdPosition actuation with the onboard controller's
+    stand-in (``position_controller_motors``) and the plant on the card: a
+    climb from hover that must finish within the 1 m ball."""
+    p = crazyflie_params()
+    base = ros.TrajectoryServer()
+
+    class Climb(ros.TrajectoryServer):
+        def handle(self, req):
+            return base.handle(ros.TrajectoryRequest("line", NODE_HOVER[:3], CLIMB_END,
+                                                     v_max=1.0, a_max=1.0))
+
+    published = []
+    node = ros.ControllerNode(p, Climb(), publish_control=published.append, v_max=1.0,
+                              a_max=1.0, actuation="position", device=device)
+    loop = ros.SimLoop(node, p, NODE_HOVER, position_tracking="dynamic")
+    x_final = loop.run(max_ticks=2000)
+    row = {"ticks": len(loop.tick_s), "finished": node.finished,
+           "x_final": x_final[:3].tolist(), "error_m": float(np.linalg.norm(x_final[:3] - CLIMB_END)),
+           "tick_p50_ms": float(np.median(loop.tick_s) * 1e3),
+           "position_commands": all(isinstance(c, ros.PositionCommand) for c in published),
+           "finite": bool(np.isfinite(x_final).all())}
+    emit("node_position", **row)
+    check(row["finite"] and row["position_commands"] and node.finished
+          and row["error_m"] < node.EPSILON_TRAJECTORY_FINISHED,
+          f"node_position: the climb did not finish in the ball {row}")
+    return row
+
+
+def phase_node_sockets(device) -> dict:
+    """The trajectory service behind TcpRpcServer / TcpRpcClient and the
+    node's ControlCommands through TcpPublisher / TcpSubscriber on
+    localhost, the node on the card, flying the JAX transport test's line."""
+    base = ros.TrajectoryServer()
+
+    class Line(ros.TrajectoryServer):
+        def handle(self, req):
+            return base.handle(ros.TrajectoryRequest("line", NODE_HOVER[:3], SOCKET_END,
+                                                     v_max=2.0, a_max=2.0))
+
+    rpc = TcpRpcServer(Line().handle)
+    client = TcpRpcClient(rpc.host, rpc.port)
+    pub = TcpPublisher()
+    received = []
+    sub = TcpSubscriber(pub.host, pub.port, received.append)
+    try:
+        deadline = time.time() + 10.0
+        while len(pub._clients) < 1 and time.time() < deadline:
+            time.sleep(0.01)
+        p = hummingbird_params()
+        node = ros.ControllerNode(p, client, publish_control=pub, v_max=2.0, a_max=2.0,
+                                  device=device)
+        loop = ros.SimLoop(node, p, NODE_HOVER)
+        x_final = loop.run(max_ticks=2000)
+        sent = node.idx_traj
+        deadline = time.time() + 10.0
+        while len(received) < sent and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        pub.close()
+        sub.close()
+        client.close()
+        rpc.close()
+    row = {"ticks": len(loop.tick_s), "commands_sent": sent, "commands_received": len(received),
+           "finished": node.finished, "x_final": x_final[:3].tolist(),
+           "error_m": float(np.linalg.norm(x_final[:3] - SOCKET_END)),
+           "tick_p50_ms": float(np.median(loop.tick_s) * 1e3), "tol": SOCKET_TOL}
+    emit("node_sockets", **row)
+    check(node.finished and row["error_m"] < SOCKET_TOL, f"node_sockets: the line {row}")
+    # the tick that finishes the line publishes its command and ends the loop
+    check(row["commands_received"] == sent == row["ticks"] + 1
+          and all(isinstance(c, ros.ControlCommand) for c in received),
+          f"node_sockets: not one command a control tick {row}")
+    return row
+
+
+def phase_hello_world(device) -> dict:
+    """The takeoff and landing (``hello_world``, the crazyflie, N=10) on the
+    card."""
+    t0 = time.perf_counter()
+    res = hello.hello_world(device=device, verbose=False)
+    row = {"seconds": time.perf_counter() - t0, "tol": HELLO_TOL,
+           **{f"{k}_error_m": v["error_m"] for k, v in res.items()},
+           **{f"{k}_x_final": v["x_final"][:3].tolist() for k, v in res.items()}}
+    emit("hello_world", **row)
+    check(all(v["error_m"] < HELLO_TOL for v in res.values()), f"hello_world: {row}")
+    return row
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls():
+    """Record the per-scenario step's calls of kernels A and J (the names
+    ``ops/sqp.py`` calls) while the block runs: {"lin": [(args, out)],
+    "ab": [...]}, every tensor cloned."""
+    calls = {"lin": [], "ab": []}
+    keep = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
+    lin, ab = sqp.linearize, sqp.condense_cost_from_AB
+
+    def rec(key, fn):
+        def call(*args):
+            out = fn(*args)
+            calls[key].append(([a.map(keep) if hasattr(a, "map") else keep(a) for a in args],
+                               [keep(o) for o in out]))
+            return out
+        return call
+
+    sqp.linearize, sqp.condense_cost_from_AB = rec("lin", lin), rec("ab", ab)
+    try:
+        yield calls
+    finally:
+        sqp.linearize, sqp.condense_cost_from_AB = lin, ab
+
+
+def node_kernel_errors(node, calls) -> dict:
+    """Kernels A and J on one node tick's own inputs against their f32 and
+    f64 plain versions (kernel A as the tick got it; kernel J recomputed on
+    the tick's A and B by ``condense_stats``)."""
+    f64 = make_mpc_dynamics(node.solver.f.params.map(lambda a: a.double()))
+    err = lambda a, b: (a.double() - b.double()).abs().max().item()
+    d64 = lambda a: None if a is None else a.map(lambda t: t.double())
+    rows = {}
+    for (X, U, aug, f, dt, *_), (xp, J) in calls["lin"]:
+        xp_p, J_p = lin_kernel.linearize_plain(f, X, U, aug, dt)
+        xp_d, J_d = lin_kernel.linearize_plain(f64, X.double(), U.double(), d64(aug), dt)
+        for k, v in {"xp_vs_plain": err(xp, xp_p), "J_vs_plain": err(J, J_p),
+                     "xp_vs_f64": err(xp, xp_d), "J_vs_f64": err(J, J_d),
+                     "xp_plain_vs_f64": err(xp_p, xp_d), "J_plain_vs_f64": err(J_p, J_d)}.items():
+            rows[f"kernel_a_{k}"] = max(rows.get(f"kernel_a_{k}", 0.0), v)
+    for args, _ in calls["ab"]:
+        _, st = condense_stats(condense_kernel.condense_cost_from_AB,
+                               condense_kernel.condense_cost_from_AB_plain, args[:5], args[5:],
+                               poison_first)
+        check_condense("kernel J at the node's tick", st)
+        for k, v in st.items():
+            if k.endswith("_rel") or k == "max_abs_err":
+                rows[f"kernel_j_{k}"] = max(rows.get(f"kernel_j_{k}", 0.0), v)
+    rows.update(lin_calls=len(calls["lin"]), ab_calls=len(calls["ab"]),
+                B=int(calls["lin"][0][0][0].shape[0]), N=int(calls["lin"][0][0][0].shape[1]) - 1,
+                basis_per_axis=None if calls["lin"][0][0][2] is None
+                else int(node.rgp_state.X.shape[-1]))
+    return rows
+
+
+def phase_node_kernels(device) -> None:
+    """Kernels A and J at the node's own shapes and inputs, against their f32
+    and f64 plain versions: one tick of the gp2 node at the ROS shapes
+    (B=1, N=5, 20 basis vectors a axis, NODE_KERNEL_TICKS into the bootstrap
+    line), and one of hello_world's takeoff (the crazyflie, no GP, N=10,
+    NODE_KERNEL_TICKS in).  Kernel A by its rules (LIN_XP_TOL, LIN_J_TOL
+    against the f32 plain version; against f64 the same, or this data's
+    f32 floor where that is higher, as at the fitted GP); kernel J by
+    COND_REL_TOL."""
+    p = crazyflie_params()
+    x0 = np.zeros(13)
+    x0[3] = 1.0
+    lift = hello.line_node(p, x0, x0[:3], np.array([0.0, 0.0, 1.0]), device)
+    gp2, loop, _ = node_flight(device, torch.float32, NODE_KERNEL_TICKS)
+    lift_loop = ros.SimLoop(lift, p, x0)
+    lift_loop.run(max_ticks=NODE_KERNEL_TICKS)
+    for name, node, x in (("node", gp2, loop.x), ("hello_world", lift, lift_loop.x)):
+        with recorded_kernel_calls() as calls:
+            node.pose_received_cb(x)
+        check(len(calls["lin"]) == len(calls["ab"]) == node.cfg.sqp_iters,
+              f"{name}: the tick made {len(calls['lin'])} kernel A and {len(calls['ab'])} "
+              f"kernel J calls")
+        row = node_kernel_errors(node, calls)
+        tol_xp = max(LIN_XP_TOL, 2 * row["kernel_a_xp_plain_vs_f64"])
+        tol_J = max(LIN_J_TOL, 2 * row["kernel_a_J_plain_vs_f64"])
+        emit(f"node_kernels_{name}", **row, tol_xp=tol_xp, tol_J=tol_J,
+             tol_xp_vs_plain=LIN_XP_TOL, tol_J_vs_plain=LIN_J_TOL, tol_rel=COND_REL_TOL)
+        check(row["kernel_a_xp_vs_plain"] <= LIN_XP_TOL and row["kernel_a_xp_vs_f64"] <= tol_xp,
+              f"kernel A xp at the {name} tick: {row}")
+        check(row["kernel_a_J_vs_plain"] <= LIN_J_TOL and row["kernel_a_J_vs_f64"] <= tol_J,
+              f"kernel A J at the {name} tick: {row}")
+
+
 def sass_ffma_counts() -> dict:
     """FFMA instructions in each instantiation of kernel G's SASS
     (``cuobjdump -sass`` of the built library), or {} without cuobjdump."""
@@ -1743,7 +2043,9 @@ def main() -> None:
     phase_solve_vs_cpu(device)
     phase_solve_batch_shapes(device)
     phase_per_scenario_auto_range(device)
+    phase_node_kernels(device)
     episode_ref = phase_episode_cpu_f64()
+    node_ref = phase_node_cpu_f64()
     torch.cuda.empty_cache()
     # the gp1 workflow's training path (its offline RGP's CPU reference and
     # the solve check's f64 plain versions need the plain versions unfenced)
@@ -1784,6 +2086,11 @@ def main() -> None:
         paths["matrix"] = drive(lambda: phase_matrix(device))
         paths["profile"] = drive(lambda: phase_profile(device))
         torch.cuda.empty_cache()
+        # the ROS node, its cmdPosition cascade, its sockets and hello_world
+        paths["node"] = drive(lambda: phase_node(device, node_ref))
+        paths["node_position"] = drive(lambda: phase_node_position(device))
+        paths["node_sockets"] = drive(lambda: phase_node_sockets(device))
+        paths["hello_world"] = drive(lambda: phase_hello_world(device))
         phase_crossover(device)
         torch.cuda.empty_cache()
         peak, probe = {}, {}
@@ -1819,6 +2126,10 @@ def main() -> None:
               "minsnap": {"lin_kernel", "sqp_fused_kernel"},
               "matrix": small_step,
               "profile": {"lin_kernel", "condense_kernel", "qp_kernel", "sqp_fused_kernel"},
+              "node": {"lin_kernel", "condense_ab_kernel"},
+              "node_position": {"lin_kernel", "condense_ab_kernel"},
+              "node_sockets": {"lin_kernel", "condense_ab_kernel"},
+              "hello_world": {"lin_kernel", "condense_ab_kernel"},
               "peak": {"fma_peak"},
               "transpose": {"mirror_probe", "elem_probe"},
               "phases": {"sqp_step_kernel", "lin_kernel", "condense_kernel", "qp_kernel"},

@@ -24,11 +24,17 @@ layout so every module has a counterpart there:
                  batch as ``run_episode_batch``) and the batch-major
                  ``run_episode_batch_fused``
 - ``io``       : episode logs (the reference's keys), checkpoints,
-                 ``SimConfig``, the metric half of ``Visualiser`` (the
-                 paper's learning metric) and the profiling timers
+                 ``SimConfig``, ``Visualiser`` (the paper's learning
+                 metric, the report, the RGP figures and animations) and
+                 ``LiveFlightView``, the profiling timers, the TCP transport
 - ``run``      : the simulation entry point (the reference's
                  ``execute_trajectory.py``): ``build_trajectory``,
                  ``run_sim``, ``main``
+- ``node``     : the ROS-shaped controller node, its trajectory server, the
+                 cmdPosition cascade and ``SimLoop``; ``hello_world`` flies
+                 it through a takeoff and a landing
+- ``scripts``, ``scripts_viz_parity``: the run and figure scripts, the
+                 figure check against the reference's Visualiser
 - ``compare``  : the comparison matrix, one run at a time or one fused batch
                  a drag mode
 - ``explore``, ``explorer``: the exploration curriculum

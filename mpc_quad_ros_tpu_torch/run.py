@@ -16,8 +16,8 @@ One drone (--batch 1) flies ``run_episode`` (kernels A and J); a batch of
 drones with per-episode drag drawn from a ``torch.Generator`` seeded with
 --seed flies ``run_episode_batch`` below 32 (kernels A and D) and
 ``run_episode_batch_fused`` from 32 (kernels A and B).  It runs on the card
-unless --cpu is given (the plain versions); --plot_output and --show wait
-for the plots' port.
+unless --cpu is given (the plain versions).  -p writes the tracking report
+(``io.viz.Visualiser.plot_data``, matplotlib on the Agg backend).
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ from .io.config import SimConfig
 
 # the batch from which the fused loop (solve_batch) flies the scenarios
 FUSED_MIN_BATCH = 32
-PLOTS_MISSING = "the plots are not ported yet (ROADMAP queue 1, item 5)"
 
 
 def build_trajectory(cfg: SimConfig, x0_pos, mpc_dt: float):
@@ -169,8 +168,6 @@ def main(argv=None):
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the plain versions); the default is the card")
     args = parser.parse_args(argv)
-    if args.plot_output or args.show:
-        raise NotImplementedError(f"--plot_output / --show: {PLOTS_MISSING}")
 
     cfg = SimConfig(
         gpe=args.gpe, trajectory=args.trajectory, v_max=args.v_max, a_max=args.a_max,
@@ -182,6 +179,10 @@ def main(argv=None):
     logger, _, _ = run_sim(cfg, device="cpu" if args.cpu else "cuda")
     if args.output:
         print(f"Saving trajectory to {logger.save_log()}")
+    if args.plot_output or args.show:
+        from .io.viz import Visualiser
+
+        Visualiser.from_logger(logger).plot_data(save_path=args.plot_output, show=bool(args.show))
     return 0
 
 

@@ -61,6 +61,28 @@ def test_plain_matches_jax_linearize(with_aug):
         assert (xp - xp0).abs().max() > 1e-3
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("with_aug", [True, False])
+def test_plain_versions_agree_bitwise(monkeypatch, dtype, with_aug):
+    """The one-pass forward-AD version (up to ONE_PASS_MAX_STAGES pairs) and
+    the vmapped ``jvp`` (past it) give the same bits, a NaN scenario's too."""
+    X, U, rgp = trajectory_inputs(B, seed=3)
+    X[2, 4, 5] = np.nan
+    aug = None if not with_aug else fold_drag(interop.rgp_state_from_numpy(rgp)).map(
+        lambda a: a.to(dtype).contiguous())
+    p = port_params().map(lambda a: a.to(dtype) if a.is_floating_point() else a)
+    args = (make_mpc_dynamics(p), t(X).to(dtype), t(U).to(dtype), aug, DT)
+    assert B * N <= lin_kernel.ONE_PASS_MAX_STAGES
+    one = lin_kernel.linearize_plain(*args)
+    monkeypatch.setattr(lin_kernel, "ONE_PASS_MAX_STAGES", 0)
+    vmapped = lin_kernel.linearize_plain(*args)
+    for a, b in zip(one, vmapped):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+        assert torch.equal(a.isnan(), b.isnan())
+    assert one[1][2].isnan().any() and not one[1][:2].isnan().any()
+
+
 @pytest.mark.parametrize("with_aug", [True, False])
 def test_kernel_source_on_host_matches_plain(host_lib, with_aug):
     X, U, rgp = trajectory_inputs(B, seed=2)

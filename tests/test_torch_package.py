@@ -43,7 +43,8 @@ BLOCK_JAX = (
     "sys.meta_path.insert(0, Block())\n")
 # the run CLI's modules, imported by name besides the walk of the package
 ENTRY_MODULES = ("run", "compare", "explore", "explorer", "traj", "traj.native_minsnap",
-                 "io.viz", "io.profiling", "io.config", "utils.metrics")
+                 "io.viz", "io.profiling", "io.config", "utils.metrics", "node", "hello_world",
+                 "scripts", "scripts_viz_parity", "io.transport")
 
 
 def _run_blocked(code: str, cwd=REPO):

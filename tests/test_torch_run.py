@@ -6,6 +6,8 @@
   shortened, as tests/test_io.py does): gp2 through ``run_sim``, gp0
   through ``main --cpu -o`` and its log, at test_torch_episode.py's
   tolerances (x 1e-7, u 1e-8, the RGP mean 1e-6);
+- ``main --cpu -p`` writing the tracking report, and ``main`` without
+  ``--cpu`` refusing to run where there is no card;
 - the batched route at B=32 bitwise the port's own
   ``run_episode_batch_fused`` on the same parameters (the fleet's drag is
   drawn from a ``torch.Generator``, not JAX's stream, so the batched route
@@ -104,10 +106,12 @@ def test_main_cpu_gp0_writes_the_jax_runs_log(short, tmp_path, capsys):
           ("x_odom", "w_odom", "x_pred_odom", "x_ref"))
 
 
-def test_main_refuses_what_is_not_ported(short, tmp_path):
+def test_main_plots_the_report_and_needs_the_card(short, tmp_path, monkeypatch):
+    monkeypatch.setattr(trun, "build_trajectory", short_circle(1.0))
     args = ["--gpe", "0", "--trajectory", "2", "--v_max", "6", "--a_max", "6"]
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        trun.main(args + ["--cpu", "-p", str(tmp_path / "plot.png")])
+    out = tmp_path / "img" / "plot.png"
+    assert trun.main(args + ["--cpu", "-p", str(out)]) == 0
+    assert out.exists() and out.stat().st_size > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             trun.main(args)
