@@ -97,7 +97,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    controller's stand-in and the plant on the card (finished in the 1 m
    ball); the trajectory service and the commands over localhost sockets
    (within 0.5 m of the line's end, one command received a control tick);
-   ``hello_world`` (both phases within 0.05 m);
+   ``hello_world`` (both phases within 0.05 m); then ``entry()``'s solve
+   (``entry.py``: one scenario, RGP drag; kernels A and J) against its f64
+   CPU solve within 1e-2; the multi-process farm (``parallel/launch.py``):
+   two ranks over gloo sharing the card, each at the solve cell's width
+   (global batch 131072, 3 chained solves a step, the step timed 5 times,
+   then 3 ticks of the RGP episode leg; kernels A and B, the leg A and D),
+   each rank's rows against the single-process card run of the same
+   scenarios (bitwise expected; else kernel B's rules against an f64 CPU
+   oracle of 256 rows a rank), the reduced sums equal on both ranks and
+   within 1e-5 of the single process's, the backend, the ranks' launches
+   and the step's solves/s (a contention figure: the ranks time-share one
+   card); ``bench/parity.py`` replaying the one-drone episode's log (gp2,
+   N=10, skip=1, the logged posterior; kernels A and J a tick) on the card,
+   held after the card paths to the CPU's f64 replay within 1e-2, du
+   against the logged commands reported; the ``gen_trajectory`` CLI on the
+   minsnap path's waypoints against the native library at the CSV's 6
+   decimals, and its usage exit;
 10. the "split" and "fused" slices: the N=10 slice's chained solves through
     kernels A, D, E and through kernel F alone;
 11. the warm-dual regulation chain (``bench/regulation.py``) at B=65536, 40
@@ -137,11 +153,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 The launch counters are reset just before each path (the gp1 workflow's
 training path in 7, phases 8-9 with the episode, the episode batch, the
 heterogeneous batch, the two gp1 flights, the run CLI, min-snap, the matrix,
-the profile, the node, its cmdPosition climb, its sockets and hello_world
-each a path of its own, 10 split, 10 fused, 11, 12, and the
-measured parts of 14-20) and read just
-after; each
-path must have launched its kernels and no other.  Every chained solve is
+the profile, the node, its cmdPosition climb, its sockets, hello_world, the
+entry point, the farm, the replay and gen_trajectory each a path of its own,
+10 split, 10 fused, 11, 12, and the measured parts of 14-20) and read just
+after; each path must have launched its kernels and no other.  The farm's
+kernels launch in its two rank processes, which start with every count at
+0 and report their counts with their results; the path's counts are their
+sum.  Every chained solve is
 timed by ``bench/phases.py::time_solves``.  The plain versions are
 fenced off on those paths.  The line before the last lists every kernel with
 its launches, its time, its plain version's and its bound
@@ -168,10 +186,11 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mpc_quad_ros_tpu_torch import compare, run  # noqa: E402
+from mpc_quad_ros_tpu_torch import entry as entry_mod  # noqa: E402
 from mpc_quad_ros_tpu_torch import hello_world as hello  # noqa: E402
 from mpc_quad_ros_tpu_torch import node as ros  # noqa: E402
 from mpc_quad_ros_tpu_torch.bench import (bounds, gp1_workflow, headline,  # noqa: E402
-                                           per_scenario, phases, probe_hybrid, suite)
+                                           parity, per_scenario, phases, probe_hybrid, suite)
 from mpc_quad_ros_tpu_torch.bench.closed_loop import (closed_loop, hetero_closed_loop,  # noqa: E402
                                                       setup, skip_closed_loop,
                                                       velocity_error_covariances)
@@ -190,9 +209,13 @@ from mpc_quad_ros_tpu_torch.ops import qp_kkt_residual, sqp  # noqa: E402
 from mpc_quad_ros_tpu_torch.ops.cuda import (_build, condense_kernel, lin_kernel,  # noqa: E402
                                              qp_kernel, riccati_kernel, sqp_fused_kernel)
 from mpc_quad_ros_tpu_torch.ops.cuda.condense_common import split_AB  # noqa: E402
+from mpc_quad_ros_tpu_torch.parallel import mp_worker  # noqa: E402
+from mpc_quad_ros_tpu_torch.parallel.launch import launch_workers  # noqa: E402
 from mpc_quad_ros_tpu_torch.traj import min_snap_trajectory, random_waypoints  # noqa: E402
-from mpc_quad_ros_tpu_torch.traj.native_minsnap import (native_available,  # noqa: E402
+from mpc_quad_ros_tpu_torch.traj.native_minsnap import (gen_trajectory_path,  # noqa: E402
+                                                        native_available,
                                                         native_min_snap_trajectory)
+from mpc_quad_ros_tpu_torch.traj.polynomial import PiecewisePolynomial4D  # noqa: E402
 
 SOLVE_B = 65536
 CLOSED_B = 16384
@@ -347,6 +370,29 @@ SOCKET_TOL = 0.5
 # hello_world's phases must end within this of their targets
 # (tests/test_hello_world.py)
 HELLO_TOL = 0.05
+# The multi-process farm (parallel/launch.py): two ranks over gloo sharing the
+# one card (NCCL refuses two ranks on one GPU), each at the solve cell's full
+# width (65536 scenarios, N=10, RGP with 10 basis vectors, 12 IPM
+# iterations), 3 chained warm-started solves a step, the step timed 5 times,
+# then 3 ticks of the closed-loop RGP leg on each rank's batch.  Each rank's
+# rows against the single-process card run of the same build_inputs
+# scenarios (bitwise expected: no kernel reduces across scenarios; else
+# kernel B's rules against the f64 oracle of MP_REF_ROWS rows a rank), the
+# reduced sums equal on both ranks and within MP_SUM_RTOL of the single
+# process's (f32 sums of 131072 terms in another order: log2(n) 2^-24 is
+# 1.0e-6).
+MP_NPROC, MP_B, MP_CHAIN, MP_TICKS, MP_REPEATS = 2, 131072, 3, 3, 5
+MP_REF_ROWS, MP_SUM_RTOL = 256, 1e-5
+# The parity harness on the episode path's log (one hummingbird, gp2, N=10,
+# 50 ticks), as the parity matrix replays a python-sim log (N=10, skip=1,
+# drop_tail 15, the logged posterior); the card's replay against the CPU's
+# f64 replay within the one-drone rule.
+PARITY_LOG = pathlib.Path(__file__).resolve().parent / "build" / "parity" / "episode.pkl"
+PARITY_REPLAY = dict(n_nodes=10, skip=1, drop_tail=15, rgp_from_log=True, params="hummingbird")
+PARITY_TOL = 1e-2
+# gen_trajectory on the minsnap path's waypoints: the CSV equals the native
+# library's durations and coefficients printed at its 6 decimals
+GEN_DIR = pathlib.Path(__file__).resolve().parent / "build" / "gen_trajectory"
 T0 = time.perf_counter()
 
 
@@ -1714,6 +1760,189 @@ def phase_hello_world(device) -> dict:
     return row
 
 
+def phase_entry_cpu_f64() -> dict:
+    """``entry()``'s solve on the CPU in f64, the card's reference (run
+    before the card paths, whose plain versions are fenced off)."""
+    fn, args = entry_mod.entry(device="cpu", dtype=torch.float64)
+    return dict(zip(("U", "X", "cost"), fn(*args)))
+
+
+def phase_entry(device, ref: dict) -> dict:
+    """``entry()``'s solve once on the card (kernels A and J), against its
+    f64 CPU solve by the one-drone rule."""
+    fn, args = entry_mod.entry(device=device)
+    t0 = time.perf_counter()
+    U, X, cost = fn(*args)
+    torch.cuda.synchronize()
+    row = {"seconds": time.perf_counter() - t0, "U_shape": list(U.shape),
+           "u_vs_cpu_f64": (U.double().cpu() - ref["U"]).abs().max().item(),
+           "x_vs_cpu_f64": (X.double().cpu() - ref["X"]).abs().max().item(),
+           "cost": cost.item(), "cost_cpu_f64": ref["cost"].item(), "tol": NODE_X_TOL}
+    emit("entry", **row)
+    check(bool(torch.isfinite(U).all() and torch.isfinite(X).all()), f"entry: non-finite {row}")
+    check(row["u_vs_cpu_f64"] <= NODE_X_TOL and row["x_vs_cpu_f64"] <= NODE_X_TOL,
+          f"entry: card against the CPU's f64 {row}")
+    return row
+
+
+def phase_multiprocess_ref() -> dict:
+    """The f64 oracle of the farm's solve on the CPU: the chained solves of
+    MP_REF_ROWS scenarios at the start of each rank's slice (scenarios are
+    independent, so a subset's chain is the whole's)."""
+    p, cfg, solver, rgp1 = mp_worker.solver_setup(12, "cpu")
+    p = p.map(lambda a: a.double())
+    solver = sqp.SQPSolver(cfg, make_mpc_dynamics(p))
+    x0, y_ref, ref = mp_worker.build_inputs(MP_B, cfg.n_nodes)
+    half = MP_B // MP_NPROC
+    idx = np.concatenate([np.arange(r * half, r * half + MP_REF_ROWS) for r in range(MP_NPROC)])
+    x0, y_ref, ref = (torch.as_tensor(a[idx], dtype=torch.float64) for a in (x0, y_ref, ref))
+    rgp = mp_worker.batch_rgp(rgp1.map(lambda a: a.double()), len(idx))
+    carry = sqp.init_carry(cfg, x0)
+    for _ in range(MP_CHAIN):
+        carry, sol = solver.solve_batch(carry, x0, y_ref, ref, rgp)
+    return {"idx": idx, "U": sol.U}
+
+
+def phase_multiprocess(device) -> dict:
+    """The farm's ranks on the card (``launch_workers``); the kernels launch
+    in the ranks, which report their counts."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = launch_workers(nproc=MP_NPROC, global_batch=MP_B, qp_iters=12, chain=MP_CHAIN,
+                         ticks=MP_TICKS, repeats=MP_REPEATS, device=device.type)
+    return {"results": res, "seconds": time.perf_counter() - t0}
+
+
+def worker_launches(results: list) -> dict:
+    """The ranks' launch counts summed, by kernel name."""
+    out = dict.fromkeys(KERNELS, 0)
+    for r in results:
+        for k, v in r.items():
+            if k.startswith("launches_"):
+                out[k.split("_", 2)[2]] += int(v)
+    return out
+
+
+def phase_multiprocess_check(device, mp: dict, ref: dict) -> dict:
+    """Each rank's rows against the single-process card run of the same
+    scenarios, the reduced sums across ranks and against the single
+    process's, the episode leg."""
+    res = mp["results"]
+    p, cfg, solver, rgp1 = mp_worker.solver_setup(12, device)
+    x0, y_ref, y_ref_N = (torch.as_tensor(a, device=device)
+                          for a in mp_worker.build_inputs(MP_B, cfg.n_nodes))
+    rgp = mp_worker.batch_rgp(rgp1, MP_B)
+    carry = sqp.init_carry(cfg, x0)
+    for _ in range(MP_CHAIN):
+        carry, sol = solver.solve_batch(carry, x0, y_ref, y_ref_N, rgp)
+    U, cost = sol.U.cpu().numpy(), sol.cost.cpu().numpy()
+    half = MP_B // MP_NPROC
+    Ug = np.concatenate([r["U_local"] for r in res])
+    costg = np.concatenate([r["cost_local"] for r in res])
+    bitwise = bool(np.array_equal(Ug, U) and np.array_equal(costg, cost))
+    u_ref = ref["U"].numpy()
+    row = {"processes": MP_NPROC, "global_batch": MP_B, "per_rank": half, "chain": MP_CHAIN,
+           "ticks": MP_TICKS, "repeats": MP_REPEATS, "seconds": mp["seconds"],
+           "backend": [str(r["backend"]) for r in res], "device": [str(r["device"]) for r in res],
+           "launches": [{k[len("launches_"):]: int(v) for k, v in r.items()
+                         if k.startswith("launches_") and int(v)} for r in res],
+           "bitwise_vs_single_process": bitwise,
+           "u_vs_single_process": float(np.abs(Ug - U).max()),
+           "cost_vs_single_process": float(np.abs(costg - cost).max()),
+           "u_vs_f64_subset": float(np.abs(Ug[ref["idx"]] - u_ref).max()),
+           "kkt_sum": [float(r["kkt_sum"]) for r in res],
+           "cost_sum": [float(r["cost_sum"]) for r in res],
+           "cost_sum_single_process": float(sol.cost.sum()),
+           "kkt_sum_single_process": float(sol.kkt_residual.sum()),
+           "ep_sq_err_sum": [float(r["ep_sq_err_sum"]) for r in res],
+           "ep_n": float(res[0]["ep_n"]),
+           "solves_per_s": float(res[0]["solves_per_sec"]),
+           "sec_per_step": float(res[0]["sec_per_step"]),
+           "note": "both ranks time-share one card: solves/s measures contention, not scaling",
+           "tol_u_vs_f64": QP_Z_TOL, "tol_sum_rtol": MP_SUM_RTOL}
+    emit("multiprocess", **row)
+    check(all(b == "gloo" for b in row["backend"]), f"multiprocess: backend {row['backend']}")
+    check(all(d.startswith("cuda") for d in row["device"]), f"multiprocess: device {row['device']}")
+    if not bitwise:
+        check(row["u_vs_f64_subset"] < QP_Z_TOL, f"multiprocess: rows against f64 {row}")
+        shifted = float(np.abs(Ug - np.roll(U, 1, axis=0)).mean())
+        check(shifted > 10 * max(float(np.abs(Ug - U).mean()), 1e-7),
+              f"multiprocess: rows not routed to their scenarios {row}")
+    for k in ("kkt_sum", "cost_sum", "ep_sq_err_sum"):
+        check(len(set(row[k])) == 1, f"multiprocess: {k} differs across ranks {row[k]}")
+    check(abs(row["cost_sum"][0] - row["cost_sum_single_process"])
+          <= MP_SUM_RTOL * abs(row["cost_sum_single_process"]), f"multiprocess: cost sum {row}")
+    check(abs(row["kkt_sum"][0] - row["kkt_sum_single_process"])
+          <= MP_SUM_RTOL * abs(row["kkt_sum_single_process"]), f"multiprocess: kkt sum {row}")
+    check(row["ep_n"] == MP_B and all(np.isfinite(r["ep_x_local"]).all() for r in res),
+          f"multiprocess: the episode leg {row}")
+    return row
+
+
+def phase_parity_replay(device) -> dict:
+    """The episode path's drone flown untimed with its posterior logged, then
+    its log replayed by ``bench/parity.py`` on the card (kernels A and J
+    each tick, in both)."""
+    t0 = time.perf_counter()
+    flight = per_scenario.logged_flight(str(PARITY_LOG), device, t_max=EPISODE_T_MAX)
+    check(flight["finite"], f"parity_replay: the logged flight {flight}")
+    t1 = time.perf_counter()
+    r = parity.replay_reference_log(str(PARITY_LOG), device=device, **PARITY_REPLAY)
+    torch.cuda.synchronize()
+    return {**r, "flight_seconds": t1 - t0, "seconds": time.perf_counter() - t1}
+
+
+def phase_parity_check(card: dict) -> dict:
+    """The card's replay against the CPU's f64 replay of the same log (run
+    after the card paths, with the plain versions back)."""
+    t0 = time.perf_counter()
+    cpu = parity.replay_reference_log(str(PARITY_LOG), device="cpu", **PARITY_REPLAY)
+    du = np.abs(card["u_ours"] - cpu["u_ours"])
+    row = {"ticks": len(card["u_ours"]), "flight_seconds": card["flight_seconds"],
+           "seconds": card["seconds"],
+           "cpu_f64_seconds": time.perf_counter() - t0,
+           **{f"{k}_vs_logged": v for k, v in card.items() if k.startswith("du_")},
+           **{f"{k}_vs_logged_cpu_f64": v for k, v in cpu.items() if k.startswith("du_")},
+           "du_max_vs_cpu_f64": float(du.max()), "du_mean_vs_cpu_f64": float(du.mean()),
+           "tol": PARITY_TOL}
+    emit("parity_replay", **row)
+    check(np.isfinite(card["u_ours"]).all(), f"parity_replay: non-finite {row}")
+    check(row["du_max_vs_cpu_f64"] <= PARITY_TOL, f"parity_replay: card against f64 {row}")
+    return row
+
+
+def phase_gen_trajectory() -> dict:
+    """The ``gen_trajectory`` CLI on the minsnap path's waypoints against the
+    native library at the CSV's 6 decimals."""
+    t0 = time.perf_counter()
+    exe = gen_trajectory_path()
+    build_s = time.perf_counter() - t0
+    GEN_DIR.mkdir(parents=True, exist_ok=True)
+    wp = random_waypoints(hsize=30.0, num_waypoints=10, start_point=np.array([0.0, 0.0, 3.0]),
+                          seed=0)
+    wp_csv, out_csv = GEN_DIR / "waypoints.csv", GEN_DIR / "poly.csv"
+    np.savetxt(wp_csv, wp, fmt="%.6f", delimiter=",")
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(exe), "-i", str(wp_csv), "-o", str(out_csv), "--v_max", "10",
+                           "--a_max", "10"], capture_output=True, text=True, timeout=60)
+    run_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"gen_trajectory exited {proc.returncode}: {proc.stderr}")
+    poly = PiecewisePolynomial4D.loadcsv(str(out_csv))
+    nat = native_min_snap_trajectory(np.loadtxt(wp_csv, delimiter=","), 10.0, 10.0)
+    bad = subprocess.run([str(exe)], capture_output=True, text=True, timeout=60).returncode
+    six = np.vectorize(lambda v: float(f"{v:.6f}"))
+    row = {"build_s": build_s, "run_s": run_s, "segments": len(poly.durations),
+           "durations_vs_native": float(np.abs(poly.durations - nat.durations).max()),
+           "coeffs_vs_native": float(np.abs(poly.coeffs - nat.coeffs).max()),
+           "equal_at_6_decimals": bool(np.array_equal(poly.durations, six(nat.durations))
+                                       and np.array_equal(poly.coeffs, six(nat.coeffs))),
+           "exit_without_arguments": bad}
+    emit("gen_trajectory", **row)
+    check(row["segments"] == len(wp) - 1 and bad == 2, f"gen_trajectory: {row}")
+    check(row["equal_at_6_decimals"], f"gen_trajectory: CSV against the native library {row}")
+    return row
+
+
 @contextlib.contextmanager
 def recorded_kernel_calls():
     """Record the per-scenario step's calls of kernels A and J (the names
@@ -2046,6 +2275,8 @@ def main() -> None:
     phase_node_kernels(device)
     episode_ref = phase_episode_cpu_f64()
     node_ref = phase_node_cpu_f64()
+    entry_ref = phase_entry_cpu_f64()
+    mp_ref = phase_multiprocess_ref()
     torch.cuda.empty_cache()
     # the gp1 workflow's training path (its offline RGP's CPU reference and
     # the solve check's f64 plain versions need the plain versions unfenced)
@@ -2091,6 +2322,20 @@ def main() -> None:
         paths["node_position"] = drive(lambda: phase_node_position(device))
         paths["node_sockets"] = drive(lambda: phase_node_sockets(device))
         paths["hello_world"] = drive(lambda: phase_hello_world(device))
+        torch.cuda.empty_cache()
+        # the entry point, the multi-process farm (its ranks launch the
+        # kernels and report their counts), the parity harness on the episode
+        # path's log and the gen_trajectory CLI
+        paths["entry"] = drive(lambda: phase_entry(device, entry_ref))
+        mp = {}
+        paths["multiprocess"] = drive(lambda: mp.update(phase_multiprocess(device)))
+        for name, n in worker_launches(mp["results"]).items():
+            paths["multiprocess"][name] += n
+        phase_multiprocess_check(device, mp, mp_ref)
+        torch.cuda.empty_cache()
+        replay = {}
+        paths["parity_replay"] = drive(lambda: replay.update(phase_parity_replay(device)))
+        paths["gen_trajectory"] = drive(phase_gen_trajectory)
         phase_crossover(device)
         torch.cuda.empty_cache()
         peak, probe = {}, {}
@@ -2105,6 +2350,7 @@ def main() -> None:
     finally:
         for (mod, name), fn in zip(PLAINS, saved):
             setattr(mod, name, fn)
+    phase_parity_check(replay)
     # the kernels' times on the paths that measure them
     res["fma_peak"]["ms"] = peak["register_resident_ms_per_launch"]
     res["mirror_probe"]["ms"] = probe["mirror_device_ms"]
@@ -2130,6 +2376,10 @@ def main() -> None:
               "node_position": {"lin_kernel", "condense_ab_kernel"},
               "node_sockets": {"lin_kernel", "condense_ab_kernel"},
               "hello_world": {"lin_kernel", "condense_ab_kernel"},
+              "entry": {"lin_kernel", "condense_ab_kernel"},
+              "multiprocess": {"lin_kernel", "sqp_fused_kernel", "condense_kernel"},
+              "parity_replay": {"lin_kernel", "condense_ab_kernel"},
+              "gen_trajectory": set(),
               "peak": {"fma_peak"},
               "transpose": {"mirror_probe", "elem_probe"},
               "phases": {"sqp_step_kernel", "lin_kernel", "condense_kernel", "qp_kernel"},

@@ -45,14 +45,11 @@ def percentiles(seconds: list) -> tuple[float, float]:
     return ms[len(ms) // 2], ms[-1]
 
 
-def episode(device="cuda", dtype=torch.float32, v: float = 8.0, t_max: float = 10.0) -> dict:
-    """One episode, a tick a call: the tick's wall time (p50 and largest,
-    ms), the tracking error from tick ERR_FROM_TICK on (mean and p95, m),
-    whether every state and control is finite, and the controls' range."""
-    dev = resolve_device(device)
+def _one_drone(dev, dtype, v: float, t_max: float, log_rgp_posterior: bool):
+    """The episode's configuration, solver, plant, start, reference and RGP."""
     p = hummingbird_params(dtype=torch.float32).map(lambda a: a.to(dev, dtype))
     cfg = EpisodeConfig(mpc=MPCConfig(u_ref=float(p.hover_input.float())),
-                        log_rgp_posterior=False)
+                        log_rgp_posterior=log_rgp_posterior)
     solver = SQPSolver(cfg.mpc, make_mpc_dynamics(p))
     _, pos, vel, _ = circle_trajectory_accelerating(10.0, v, t_max=t_max, dt=cfg.mpc.dt)
     traj = torch.as_tensor(states_from_flat_outputs(pos, vel), dtype=dtype, device=dev)
@@ -60,7 +57,15 @@ def episode(device="cuda", dtype=torch.float32, v: float = 8.0, t_max: float = 1
     x0[3] = 1.0
     x0[2] = 3.0
     basis = torch.linspace(-v, v, N_BASIS, dtype=dtype, device=dev).expand(3, N_BASIS)
-    rgp = rgp_init(basis, theta=(3.0, 0.1, 0.01))
+    return cfg, solver, p, x0, traj, rgp_init(basis, theta=(3.0, 0.1, 0.01))
+
+
+def episode(device="cuda", dtype=torch.float32, v: float = 8.0, t_max: float = 10.0) -> dict:
+    """One episode, a tick a call: the tick's wall time (p50 and largest,
+    ms), the tracking error from tick ERR_FROM_TICK on (mean and p95, m),
+    whether every state and control is finite, and the controls' range."""
+    dev = resolve_device(device)
+    cfg, solver, p, x0, traj, rgp = _one_drone(dev, dtype, v, t_max, log_rgp_posterior=False)
     carry, outs, ticks = None, [], []
     for i in range(traj.shape[0]):
         t0 = time.perf_counter()
@@ -78,6 +83,21 @@ def episode(device="cuda", dtype=torch.float32, v: float = 8.0, t_max: float = 1
             "err_mean_m": float(err.mean()), "err_p95_m": float(np.percentile(err.numpy(), 95)),
             "finite": bool(torch.isfinite(x_odom).all() and torch.isfinite(w_odom).all()),
             "u_min": float(w_odom.min()), "u_max": float(w_odom.max())}
+
+
+def logged_flight(log_path: str, device="cuda", dtype=torch.float32, v: float = 8.0,
+                  t_max: float = 10.0) -> dict:
+    """The episode's drone flown untimed in one ``run_episode`` call with its
+    RGP posterior logged; the log (the python-sim log ``bench/parity.py``
+    replays) is written through ``Logger`` to `log_path`."""
+    from ..io.logger import Logger, save_dict
+
+    dev = resolve_device(device)
+    cfg, solver, p, x0, traj, rgp = _one_drone(dev, dtype, v, t_max, log_rgp_posterior=True)
+    _, outs = run_episode(cfg, solver, p, x0, traj, traj.shape[0], rgp)
+    save_dict(Logger.from_episode(outs).dictionary, log_path)
+    return {"ticks": int(outs.x_odom.shape[0]),
+            "finite": bool(torch.isfinite(outs.x_odom).all() and torch.isfinite(outs.w_odom).all())}
 
 
 def solve_latency(device="cuda") -> dict:

@@ -2,7 +2,7 @@
 solves through each pipeline and backend with their launch counts, the
 loops in gp2 and gp1, the per-scenario solve, the GP fit, the node's ticks
 and the takeoff-and-land demo, each in f32 on the card against the CPU's
-f64; and, where there is no card, the entry points
+f64; two ranks of the multi-process farm sharing the card; and, where there is no card, the entry points
 refusing to run and ``chip_smoke.py`` failing.  JAX-free, so that it
 collects on the GPU host:
 
@@ -292,6 +292,43 @@ def test_gp_fit_on_cuda_matches_cpu():
         card = tgp.gp_fit(t(X[d]).to(dev), t(y[d]).to(dev))
         assert card.theta.device.type == "cuda"
         assert rel(card.theta.cpu(), cpu.theta) <= 1e-6
+
+
+# ---------------------------------------------------------------- two ranks
+
+def test_two_ranks_on_one_card():
+    """The multi-process farm's two ranks on ``cuda:0`` over gloo (NCCL
+    refuses two ranks on one card), global batch 256 (128 a rank: kernels A
+    and B; the episode leg A and D), 2 chained solves and 1 tick: each
+    rank's rows against the single-process card run of the same scenarios
+    within kernel B's 4e-2 and the routing discriminator, the reduced sums
+    the same on both ranks and within 1e-5 of the single-process sums."""
+    from mpc_quad_ros_tpu_torch.parallel import mp_worker
+    from mpc_quad_ros_tpu_torch.parallel.launch import launch_workers
+
+    dev = require_cuda()
+    B = 256
+    res = launch_workers(nproc=2, global_batch=B, qp_iters=12, chain=2, ticks=1, device="cuda")
+    p, cfg, solver, rgp1 = mp_worker.solver_setup(12, dev)
+    x0, y_ref, ref = (t(a).to(dev) for a in mp_worker.build_inputs(B, cfg.n_nodes))
+    rgp = mp_worker.batch_rgp(rgp1, B)
+    carry = init_carry(cfg, x0)
+    for _ in range(2):
+        carry, sol = solver.solve_batch(carry, x0, y_ref, ref, rgp)
+    U = sol.U.cpu().numpy()
+    for rank, r in enumerate(res):
+        assert str(r["backend"]) == "gloo" and str(r["device"]) == "cuda:0"
+        assert int(r["launches_solve_lin_kernel"]) > 0 and int(r["launches_solve_sqp_fused_kernel"]) > 0
+        assert int(r["launches_episode_lin_kernel"]) > 0 and int(r["launches_episode_condense_kernel"]) > 0
+        rows = U[rank * B // 2:(rank + 1) * B // 2]
+        gap = float(np.abs(r["U_local"] - rows).max())
+        assert gap <= 4e-2, gap
+        shifted = float(np.abs(r["U_local"] - np.roll(rows, 1, axis=0)).mean())
+        assert shifted > 10 * max(float(np.abs(r["U_local"] - rows).mean()), 1e-7)
+        assert np.isfinite(r["ep_x_local"]).all()
+    for k in ("kkt_sum", "cost_sum", "n", "ep_sq_err_sum", "ep_n"):
+        assert float(res[0][k]) == float(res[1][k]), k
+    np.testing.assert_allclose(float(res[0]["cost_sum"]), float(sol.cost.sum()), rtol=1e-5)
 
 
 # ---------------------------------------------------------------- without a card

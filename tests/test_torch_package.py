@@ -1,6 +1,7 @@
 """Package-level properties of the PyTorch port: it imports with JAX and the
-JAX package blocked (every module, the run CLI's by name), and so do the
-CUDA-gated test modules; CPU tensors take the plain versions (no kernel
+JAX package blocked (every module, the run CLI's and the multi-process
+farm's by name), one rank of the farm runs with them blocked, and the
+CUDA-gated test modules import so; CPU tensors take the plain versions (no kernel
 launch), parameters cross over from the JAX package intact, and
 ``chip_smoke.py`` fails alone.  The CUDA wrappers' checks and the run
 without a GPU are in ``test_torch_cuda_kernels.py`` and
@@ -44,7 +45,9 @@ BLOCK_JAX = (
 # the run CLI's modules, imported by name besides the walk of the package
 ENTRY_MODULES = ("run", "compare", "explore", "explorer", "traj", "traj.native_minsnap",
                  "io.viz", "io.profiling", "io.config", "utils.metrics", "node", "hello_world",
-                 "scripts", "scripts_viz_parity", "io.transport")
+                 "scripts", "scripts_viz_parity", "io.transport", "parallel", "parallel.mesh",
+                 "parallel.distributed", "parallel.launch", "parallel.mp_worker", "entry",
+                 "bench.parity", "bench.parity_matrix", "bench.comparison_artifact")
 
 
 def _run_blocked(code: str, cwd=REPO):
@@ -64,6 +67,19 @@ def test_import_leaves_jax_out():
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'mpc_quad_ros_tpu.')))\n"
             "print('LEAKED', bad) if bad else print('CLEAN')\n")
     assert _run_blocked(code).strip().endswith("CLEAN")
+
+
+def test_worker_rank_runs_with_jax_blocked(tmp_path):
+    """One rank of the multi-process farm (a world of one, on the CPU) runs
+    its solve and episode leg with JAX and the JAX package blocked."""
+    code = ("from mpc_quad_ros_tpu_torch.parallel import mp_worker\n"
+            f"mp_worker.main(['--init-method', {(tmp_path / 'rdv').as_uri()!r}, "
+            "'--num-processes', '1', '--process-id', '0', '--global-batch', '4', "
+            "'--qp-iters', '2', '--ticks', '1', '--device', 'cpu'])\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'mpc_quad_ros_tpu.')))\n"
+            "print('LEAKED', bad) if bad else print('CLEAN')\n")
+    out = _run_blocked(code)
+    assert "backend gloo" in out and out.strip().endswith("CLEAN")
 
 
 def test_cuda_test_modules_import_without_jax():
