@@ -10,10 +10,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    one line per kernel B, E and F at N = 10 and 40 (nz = 40 and 160), kernel
    A at N = 10 and kernels C, D and J at N = 10 and 40: shared memory per
    block, registers and spills (the build log's ``-Xptxas -v``), resident
-   blocks and warps per SM (the occupancy API), and the same for kernels H
-   and I at nz = 40 (blocks of up to four warps, a tile each); kernel B must
-   keep at least 12 warps resident per SM at N = 10, kernel C more than 11
-   at N = 40, kernel D more than 11 at N = 10;
+   blocks and warps per SM (the occupancy API; kernel B's warps a block and
+   shared memory a scenario), and the same for kernels H and I at nz = 40
+   (blocks of up to four warps, a tile each); kernel B must keep at least
+   22 warps resident per SM at N = 10, kernel C more than 11 at N = 40,
+   kernel D more than 11 at N = 10;
 3. kernel A (RK4 linearisation) against its plain PyTorch version, in f32
    and against the f64 plain version, at the main-path shapes, and NaN
    isolation between scenarios;
@@ -308,10 +309,16 @@ BENCH_B = 16384
 # the JAX default, and enough passes to outweigh the tiles' bytes.
 PROBE_NZ = 40
 PROBE_REPS = (4, 32)
-# Kernel B's resident warps per SM at N = 10: its block was cut to one
-# packed matrix so that at least this many reside (6 with three matrices
-# and J staged).
-RESIDENT_WARPS_MIN = 12
+# Kernel B's resident warps per SM at N = 10: blocks of two scenarios, each
+# one packed matrix and one condensing map (8,904 B), J read from device
+# memory and the registers fitted to 12 blocks an SM, reside 24 warps; this
+# is that less one block's warps (16 with two maps and J's stream buffer,
+# 6 with three matrices and J staged).
+RESIDENT_WARPS_MIN = 22
+# Kernel B at N = 17, the shortest horizon of three register slots a lane:
+# one warp a block, 24,516 B, of which shared memory admits 9 an SM; the
+# registers are fitted to as many.
+N_R3, RESIDENT_WARPS_MIN_R3 = 17, 9
 # Kernel C's resident warps per SM at N = 40 must pass the 11 that its
 # workspace allowed with K and kff in shared memory (19,584 B a block).
 RICCATI_WARPS_BEFORE = 11
@@ -504,9 +511,11 @@ def phase_build() -> None:
 
 
 def phase_residency(regs: dict) -> None:
-    """Kernels B, E and F at N = 10 and 40: shared memory per block, the
+    """Kernels B, E and F at N = 10, 17 and 40: shared memory per block, the
     registers and spills of the instantiation that runs there (R register
-    slots a lane, nz <= 32 R), resident one-warp blocks per SM; kernel A
+    slots a lane, nz <= 32 R), resident blocks and warps per SM (kernel B's
+    blocks ``mpcq_sqp_block_warps`` warps, one scenario a warp, with the
+    shared memory a scenario; E's and F's one warp); kernel A
     (blocks of 128 threads) at N = 10, kernel C (one warp a block) at N = 10
     and 40; kernels D (one warp a block) and J (one block of
     ``mpcq_condense_ab_threads()`` a scenario) at N = 10 and 40."""
@@ -531,25 +540,30 @@ def phase_residency(regs: dict) -> None:
     check(c40 > RICCATI_WARPS_BEFORE,
           f"residency: kernel C keeps {c40} warps per SM at N={N_LONG}, not more than "
           f"{RICCATI_WARPS_BEFORE}")
-    for N in (10, N_LONG):
+    for N in (10, N_R3, N_LONG):
         nz = 4 * N
         slots = -(-nz // 32)
-        for name, key, smem, blocks in (
+        for name, key, smem, blocks, warps in (
                 ("sqp_fused_kernel", f"sqp_fused<{slots}>", lib.mpcq_sqp_ws_bytes(N),
-                 lib.mpcq_sqp_occupancy(0, N)),
+                 lib.mpcq_sqp_occupancy(0, N), lib.mpcq_sqp_block_warps(N)),
                 ("qp_kernel", f"box_qp<{slots}>", lib.mpcq_box_qp_ws_bytes(nz),
-                 lib.mpcq_box_qp_occupancy(nz)),
+                 lib.mpcq_box_qp_occupancy(nz), 1),
                 ("sqp_step_kernel", f"sqp_step<{slots}>", lib.mpcq_sqp_step_ws_bytes(N),
-                 lib.mpcq_sqp_occupancy(1, N))):
+                 lib.mpcq_sqp_occupancy(1, N), 1)):
             row = {"kernel": name, "instantiation": key, "N": N, "nz": nz, "smem_bytes": smem,
+                   "warps_per_block": warps, "smem_bytes_per_scenario": smem // warps,
                    **regs.get(key, {}), "resident_blocks_per_sm": blocks,
-                   "resident_warps_per_sm": blocks}
+                   "resident_warps_per_sm": blocks * warps}
             rows[(name, N)] = row
             emit("residency", **row)
             check(blocks > 0, f"residency: {name} at N={N} does not launch: {row}")
     b10 = rows[("sqp_fused_kernel", 10)]["resident_warps_per_sm"]
     check(b10 >= RESIDENT_WARPS_MIN,
           f"residency: kernel B keeps {b10} warps per SM at N=10, fewer than {RESIDENT_WARPS_MIN}")
+    b17 = rows[("sqp_fused_kernel", N_R3)]["resident_warps_per_sm"]
+    check(b17 >= RESIDENT_WARPS_MIN_R3,
+          f"residency: kernel B keeps {b17} warps per SM at N={N_R3}, fewer than "
+          f"{RESIDENT_WARPS_MIN_R3}")
     nt = lib.mpcq_condense_ab_threads()
     for N in (10, N_LONG):
         for name, key, threads, blocks in (

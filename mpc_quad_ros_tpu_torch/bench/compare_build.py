@@ -13,16 +13,19 @@ solve cell's next Gauss-Newton step at B scenarios, N=10 (kernel A on the
 trajectory, kernels B and D fed kernel A's J, kernel E on kernel D's QP,
 kernel F on the trajectory; B, E and F cold and warm-started from the first
 solve's duals; kernel J on the A and B blocks of the first 1 and 127
-scenarios' J), and kernel C at N=40 on kernel A's J of the same cell's step
-at that horizon.  Kernel C's entry takes a device scratch where the library
-has ``mpcq_riccati_scratch_bytes`` (its other arguments are the same).
+scenarios' J), kernel B again on the same cell's step at the horizons and
+batches of ``B_STEPS``, cold and warm, and kernel C at N=40 on kernel A's J
+of the same cell's step at that horizon.  Kernel C's entry takes a device
+scratch where the library has ``mpcq_riccati_scratch_bytes`` (its other
+arguments are the same).
 Kernels G, H and I (``mpcq_fma``, ``mpcq_mirror``, ``mpcq_elem``) run at the
 bench's shapes, whatever B: G at ``phases.REGISTER_SHAPE`` and
 ``STREAMING_SHAPE`` on ``phases.fma_input``, H and I on the transpose
 probe's tiles (``probe_hybrid.probe_input``: B=16384, nz=40) at reps = 4
 and 32.  One JSON line per kernel and start: whether the two libraries'
-outputs are bitwise equal, their largest difference, and each library's
-CUDA-event time, taken in turns (other, this, this, other); the rows of
+outputs are bitwise equal (their bit patterns, so a NaN where both have it
+agrees), their largest difference, and each library's CUDA-event time,
+taken in turns (other, this, this, other); the rows of
 kernels H, I and J add each library's device time of one launch from
 ``torch.profiler`` (200 launches).  The launch counters of this
 checkout's wrappers are not touched: the calls go to the C entries.
@@ -65,10 +68,10 @@ def other_library(path: pathlib.Path):
     return mod.load_library()
 
 
-def step_inputs(B: int, device) -> dict:
-    """The solve cell's step after one warm-up solve with warm duals on:
-    kernel B's, E's and F's arguments as the pipelines form them."""
-    solver, carry, x0, y_ref, rgp = operating_point(B, device, mu_scale=0.3,
+def step_inputs(B: int, device, N: int = 10) -> dict:
+    """The solve cell's step at horizon N after one warm-up solve with warm
+    duals on: kernel B's, E's and F's arguments as the pipelines form them."""
+    solver, carry, x0, y_ref, rgp = operating_point(B, device, mu_scale=0.3, N=N,
                                                     warm_start_duals=True)
     carry, _ = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp)
     cfg = solver.cfg
@@ -223,10 +226,19 @@ def fma_inputs(shape, resident: bool, device) -> dict:
             "steps": steps, "resident": resident}
 
 
+# Kernel B's steps beside the N=10 step at B, as (N, scenarios): at 128
+# scenarios, fewer than two of its two-warp blocks an SM; at N=17 and 20, one
+# warp a block (R = 3), at the cell's batch and at 128; at N=40, 4096
+# scenarios, since a block of 131 KB resides once an SM and 4096 already
+# fill the card 31 times over at a sixteenth of the cell's memory.
+B_STEPS = ((10, 128), (17, 65536), (17, 128), (20, 65536), (20, 128), (40, 4096))
+
 # (kernel, its run, whether it takes warm duals, its inputs: the N=10 step,
-# kernel J's blocks of its first 1 or 127 scenarios, the N=40 step, kernel
-# G's shapes, the probe's tiles at reps = 4 or 32)
+# kernel B's steps "step{N}x{scenarios}", kernel J's blocks of its first 1 or
+# 127 scenarios, the N=40 Riccati step, kernel G's shapes, the probe's tiles
+# at reps = 4 or 32)
 KERNELS = (("A", run_a, False, "step"), ("B", run_b, True, "step"),
+           *(("B", run_b, True, f"step{n}x{b}") for n, b in B_STEPS),
            ("C", run_c, False, "riccati"), ("D", run_d, False, "step"),
            ("E", run_e, True, "step"), ("F", run_f, True, "step"),
            ("J", run_j, False, "ab1"), ("J", run_j, False, "ab127"),
@@ -244,11 +256,14 @@ PROBE_B, PROBE_NZ = 16384, 40
 
 
 def make_inputs(key: str, B: int, inputs: dict, device) -> dict:
-    """The inputs named `key`, made on first use (the step's at B)."""
+    """The inputs named `key`, made on first use (the N=10 step's at B)."""
     if key in inputs:
         return inputs[key]
     if key == "step":
         inp = step_inputs(B, device)
+    elif key.startswith("step"):
+        n, b = map(int, key[len("step"):].split("x"))
+        inp = step_inputs(b, device, N=n)
     elif key.startswith("ab"):
         inp = ab_inputs(make_inputs("step", B, inputs, device), int(key[2:]))
     elif key == "riccati":
@@ -261,6 +276,11 @@ def make_inputs(key: str, B: int, inputs: dict, device) -> dict:
                "reps": int(key[len("probe"):])}
     inputs[key] = inp
     return inp
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit patterns (NaNs included) of two f32 tensors."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
@@ -276,7 +296,7 @@ def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
             row = {"kernel": name, "start": start if warm else "-",
                    "B": inp["args"][0].shape[0], "N": inp["N"],
                    **{k: inp[k] for k in ("reps", "chains", "steps", "resident") if k in inp},
-                   "bitwise": all(torch.equal(a, b) for a, b in zip(outs["this"], outs["other"])),
+                   "bitwise": all(same_bits(a, b) for a, b in zip(outs["this"], outs["other"])),
                    "max_abs_diff": max((a - b).abs().max().item()
                                        for a, b in zip(outs["this"], outs["other"])),
                    "finite": all(bool(torch.isfinite(a).all()) for a in outs["this"])}

@@ -10,9 +10,10 @@
    launch.
 2. The IPM with one part taken out: copies of this package under
    ``build/ipm_parts/<variant>/`` whose ``csrc/ipm_box.cuh`` has one loop
-   emptied (the Cholesky's trailing update, the two substitutions, H z, the
-   fill of the factor's lower triangle from H), or the depth of the
-   Cholesky's load batches changed, each built by its own ``_build.py``.
+   emptied (the Cholesky's trailing updates, its panel steps' row updates,
+   the two substitutions, H z, the fill of the factor's lower triangle from
+   H), or the Cholesky's panel width changed, each built by its own
+   ``_build.py``.
    Kernels B and E at --B, 12 iterations, against the unchanged source in
    the same process.  An emptied variant computes nothing useful: only its
    time is read, and a part's share is the full kernel's time less its
@@ -40,29 +41,33 @@ SHAPES = (1, 1024, 4096, 16384)
 COLD = (None, None)
 # variant -> edits of csrc/ipm_box.cuh (each old text must occur once)
 VARIANTS = {
-    "no_trailing_update": [("for (int e0 = ln; e0 < total;", "for (int e0 = ln + total; e0 < total;")],
+    "no_trailing_update": [("for (int e = ln; e < total; e += NL) {\n        const int code = tri[e], a",
+                            "for (int e = ln + total; e < total; e += NL) {\n        const int code = tri[e], a")],
+    "no_panel_steps": [("for (int i = j + 1 + ln; i < nz; i += NL) {\n          const T lij",
+                        "for (int i = nz + ln; i < nz; i += NL) {\n          const T lij")],
     "no_substitutions": [("for (int jl = 0; jl < NL; ++jl) {", "for (int jl = NL; jl < NL; ++jl) {"),
                          ("for (int jl = NL - 1; jl >= 0; --jl) {", "for (int jl = -1; jl >= 0; --jl) {")],
     "no_hz": [("for (int j = 1; j < nz; ++j) {\n      const T sj",
                "for (int j = nz; j < nz; ++j) {\n      const T sj")],
     "no_fill": [("for (int e = ln; e < total; e += NL) {\n        const int code = tri[e], i",
                  "for (int e = ln + total; e < total; e += NL) {\n        const int code = tri[e], i")],
-    "chol_batch_2": [("constexpr int CHOL_BATCH = 4;", "constexpr int CHOL_BATCH = 2;")],
-    "chol_batch_8": [("constexpr int CHOL_BATCH = 4;", "constexpr int CHOL_BATCH = 8;")],
+    "chol_panel_2": [("constexpr int CHOL_PANEL = 4;", "constexpr int CHOL_PANEL = 2;")],
+    "chol_panel_8": [("constexpr int CHOL_PANEL = 4;", "constexpr int CHOL_PANEL = 8;")],
 }
 
 
-def variant_checkout(name: str, edits, root: pathlib.Path) -> pathlib.Path:
+def variant_checkout(name: str, edits, root: pathlib.Path,
+                     source: str = "ipm_box.cuh") -> pathlib.Path:
     """A copy of this package under root/name with the edits applied to
-    csrc/ipm_box.cuh."""
+    csrc/<source>."""
     dst = root / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(PACKAGE, dst / PACKAGE.name, ignore=shutil.ignore_patterns("__pycache__"))
-    header = dst / PACKAGE.name / "csrc" / "ipm_box.cuh"
+    header = dst / PACKAGE.name / "csrc" / source
     src = header.read_text()
     for old, new in edits:
         if src.count(old) != 1:
-            raise SystemExit(f"ipm_parts: {name}: {old!r} does not occur exactly once")
+            raise SystemExit(f"{name}: {old!r} does not occur exactly once in {source}")
         src = src.replace(old, new)
     header.write_text(src)
     return dst

@@ -269,6 +269,7 @@ template <typename Team> constexpr int host_slots = 256 / Team::size;
 
 #if !defined(__CUDACC__)
 #include <barrier>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -347,6 +348,26 @@ template <int Lanes, typename Body> int run_thread_team(int64_t B, Body body) {
         tm.sync();  // the workspace is reused by the next scenario
       }
     });
+  for (auto& t : threads) t.join();
+  return 0;
+}
+
+// Runs body(team, b, w) for b in [0, B) as the card runs a kernel whose
+// blocks hold `warps` teams of Lanes lanes: team w of block i takes scenario
+// i warps + w and slot w of the block's workspace; the teams run side by
+// side and never wait on one another.
+template <int Lanes, typename Body> int run_block_teams(int warps, int64_t B, Body body) {
+  std::unique_ptr<ThreadShared<Lanes>[]> sh(new ThreadShared<Lanes>[warps]);
+  std::vector<std::thread> threads;
+  for (int w = 0; w < warps; ++w)
+    for (int l = 0; l < Lanes; ++l)
+      threads.emplace_back([&, w, l] {
+        ThreadTeam<Lanes> tm{l, &sh[w]};
+        for (int64_t b = w; b < B; b += warps) {
+          body(tm, b, w);
+          tm.sync();  // the slot is reused by the team's next scenario
+        }
+      });
   for (auto& t : threads) t.join();
   return 0;
 }

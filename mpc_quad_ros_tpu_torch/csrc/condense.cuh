@@ -20,7 +20,10 @@
 // - condense_packed (kernels B, F, for ipm_box.cuh): H (ld = nz + 1) with
 //   element (r, c), c < r, at (c, r) in the upper triangle and the diagonal
 //   in the spare column nz; the lower triangle is left for the IPM's factor.
-//   J is staged whole in shared memory (kernel F) or streamed (kernel B).
+//   J is read whole where it lies: staged in shared memory (kernel F) or in
+//   device memory, through L1 (kernel B).  One map M in shared memory: each
+//   lane forms its own columns of M_{k+1} in registers and writes them over
+//   M_k's.
 // - condense_full (kernels D, J): H kept as its packed lower triangle,
 //   row-major ((r, c) at r (r + 1) / 2 + c, 820 floats at N = 10), g as its
 //   row nz; the rows below the live width and g's live part are what the
@@ -48,16 +51,6 @@ template <typename T> Weights<T> weights_from(const T* w) {
   for (int a = 0; a < SU; ++a) out.rw[a] = w[2 * SX + a];
   return out;
 }
-
-// J (N x 17 x 13) already in shared memory.
-template <typename T> struct StagedJ {
-  const T* Js;
-  int N;
-  template <typename Team> MPCQ_HD void prefetch(const Team&, int) const {}
-  template <typename Team> MPCQ_HD const T* stage(const Team&, int k) const {
-    return Js + k * J_STAGE;
-  }
-};
 
 // J in device memory, streamed through buf (2 stages).  prefetch(k) starts
 // stage k's copy into buf[k % 2]; stage(k) waits for it, syncs and returns
@@ -101,16 +94,22 @@ template <typename T> struct StreamedAB {
   }
 };
 
-// Condense from the J source js into the packed layout of H (nz x ld) and g,
-// using Mb (2 x 13 x nz) and db (2 x 13).  rg, dx0, ex0 may lie in global or
-// shared memory.  Ends with a team sync.
-template <typename T, typename Team, typename JSrc>
-MPCQ_HD void condense_packed(const Team& tm, int N, const Weights<T>& wt, const JSrc& js, T* Mb,
+// Condense from J (N x 17 x 13, in shared or device memory) into the packed
+// layout of H (nz x ld) and g, using one map M (13 x nz) and db (2 x 13).
+// rg, dx0, ex0 may lie in device or shared memory.  Ends with a team sync.
+//
+// The map's recurrence is lane-local: lane l owns columns l, l + size, ...
+// of M, and once every lane has read M_k for H and g it reads its column of
+// M_k into registers and writes the column of M_{k+1} over it, 13 rows, each
+// element one chain in the order the header states.  Every lane reads the
+// same entry of A_k at a time: from device memory one broadcast load through
+// L1, from shared memory one broadcast.
+template <typename T, typename Team>
+MPCQ_HD void condense_packed(const Team& tm, int N, const Weights<T>& wt, const T* J, T* M,
                              T* db, T* H, T* g, const T* rg, const T* dx0, const T* ex0) {
   const int nz = N * SU, ld = nz + 1, ln = tm.lane, NL = Team::size;
 
-  js.prefetch(tm, 0);
-  for (int e = ln; e < 2 * SX * nz; e += NL) Mb[e] = T(0);
+  for (int e = ln; e < SX * nz; e += NL) M[e] = T(0);
   for (int e = ln; e < nz * ld; e += NL) H[e] = T(0);
   for (int i = ln; i < nz; i += NL) g[i] = T(0);
   for (int i = ln; i < SX; i += NL) db[i] = dx0[i];
@@ -118,9 +117,8 @@ MPCQ_HD void condense_packed(const Team& tm, int N, const Weights<T>& wt, const 
 
   // ---- live width lw = k * nu ----
   int cur = 0;
-  for (int k = 0; k <= N; ++k) {
-    if (k + 1 < N) js.prefetch(tm, k + 1);
-    const T* M = Mb + cur * SX * nz;
+  const T* Jk = J;  // J_k, stepped a stage at a time
+  for (int k = 0; k <= N; ++k, Jk += J_STAGE) {
     const T* d = db + cur * SX;
     const int lw = k * SU;
     if (k > 0) {
@@ -146,26 +144,31 @@ MPCQ_HD void condense_packed(const Team& tm, int N, const Weights<T>& wt, const 
       }
     }
     if (k == N) break;
-    T* Mn = Mb + (1 - cur) * SX * nz;
     T* dn = db + (1 - cur) * SX;
-    const T* Jk = js.stage(tm, k);
     const T* rk = rg + k * SX;
     for (int row = ln; row < SX; row += NL) {
       T acc = Jk[row] * d[0];
       for (int j = 1; j < SX; ++j) acc = acc + Jk[j * SX + row] * d[j];
       dn[row] = acc + rk[row];
     }
-    const int wn = lw + SU;
-    for (int e = ln; e < SX * wn; e += NL) {
-      int row = e / wn, col = e % wn;
-      T v;
+    tm.sync();
+    // M_{k+1} = [A_k M_k | B_k] over M_k, column by column
+    for (int col = ln; col < lw + SU; col += NL) {
       if (col < lw) {
-        v = Jk[row] * M[col];
-        for (int j = 1; j < SX; ++j) v = v + Jk[j * SX + row] * M[j * nz + col];
+        T m[SX];
+        MPCQ_UNROLL
+        for (int j = 0; j < SX; ++j) m[j] = M[j * nz + col];
+        MPCQ_UNROLL
+        for (int row = 0; row < SX; ++row) {
+          T v = Jk[row] * m[0];
+          MPCQ_UNROLL
+          for (int j = 1; j < SX; ++j) v = v + Jk[j * SX + row] * m[j];
+          M[row * nz + col] = v;
+        }
       } else {
-        v = Jk[(SX + col - lw) * SX + row];
+        const T* Bk = Jk + (SX + col - lw) * SX;
+        for (int row = 0; row < SX; ++row) M[row * nz + col] = Bk[row];
       }
-      Mn[row * nz + col] = v;
     }
     tm.sync();
     cur = 1 - cur;

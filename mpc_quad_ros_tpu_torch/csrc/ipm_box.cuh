@@ -37,18 +37,20 @@
 //
 // What bounds it on the H100, and what the design does about it.  A
 // scenario is a chain of nz dependent Cholesky columns and 2 nz dependent
-// substitution steps per iteration, latency-bound on one warp; the batch
-// hides that latency only with many resident warps, which shared memory
-// caps.  So: one matrix, two vectors and the triangle table in shared
-// memory (8.4 KB at nz = 40); the trailing
-// update of column j split evenly over the lanes as a flattened triangle
-// (every lane 0-1 elements apart, where whole rows gave lanes 0-7 twice the
-// work at nz = 40), each element's coordinates one table read (a trailing
-// triangle is a prefix of the whole one, so one table serves every column),
-// four elements' loads made before their stores, the column's scaling
-// folded into the update so a column costs one sync; the
-// substitutions' right-hand sides in registers, each step one shuffle
-// instead of a shared-memory round trip through lane 0.
+// substitution steps per iteration on one warp, whose latency only many
+// resident warps hide; with enough of them (16 a SM for kernel B at nz =
+// 40) the SM's instruction issue and shared-memory accesses bind, most of
+// them the Cholesky's trailing updates.  So: one matrix, two vectors and
+// the triangle table in shared memory (8.4 KB at nz = 40); the Cholesky by
+// panels of CHOL_PANEL columns, the trailing block past a panel updated in
+// one pass split evenly over the lanes as a flattened triangle (each
+// element's coordinates one table read: a trailing triangle is a prefix of
+// the whole one), each element loaded and stored once a panel rather than
+// once a column, its CHOL_PANEL updates from the panel's columns, stored
+// scaled (two loads an update, no multiply); a panel's own columns one
+// step a column, a lane a row, one sync a step; the substitutions'
+// right-hand sides in registers, each step one shuffle instead of a
+// shared-memory round trip through lane 0.
 //
 // The arithmetic of every element is the previous design's: each multiply
 // is written as the fused multiply-add (fmadd) or the rounded product
@@ -100,8 +102,8 @@ template <typename T> MPCQ_HD T h_sym(const T* A, int ld, int i, int j) {
   return A[lo * ld + (i == j ? ld - 1 : hi)];
 }
 
-// Elements of one column's trailing update a lane loads before it stores.
-constexpr int CHOL_BATCH = 4;
+// Columns of the Cholesky factored together (a panel).
+constexpr int CHOL_PANEL = 4;
 
 // A (nz x (nz + 1)): H packed as above; its upper triangle and spare column
 // are left as they came, its lower triangle holds the last factor.  vec:
@@ -129,15 +131,14 @@ MPCQ_HD void ipm_box_solve(const Team& tm, int nz, int iters, T* A, T* vec, cons
   }
   // lane-owned entries i = ln + NL r; v is the Newton right-hand side, then
   // y, then dz
-  T s[R], g[R], lb[R], ub[R], z[R], sl[R], su[R], zl[R], zu[R], sli[R], sui[R], dinv[R],
-      v[R], hz[R];
+  T s[R], g[R], lb[R], ub[R], z[R], sl[R], su[R], zl[R], zu[R], dinv[R], v[R], hz[R];
   auto own = [&](int r) { return ln + NL * r; };
 
   // ---- Jacobi scaling and the cold or warm start ----
   MPCQ_UNROLL
   for (int r = 0; r < R; ++r) {
     s[r] = g[r] = lb[r] = ub[r] = z[r] = sl[r] = su[r] = zl[r] = zu[r] = T(0);
-    sli[r] = sui[r] = dinv[r] = v[r] = hz[r] = T(0);
+    dinv[r] = v[r] = hz[r] = T(0);
     const int i = own(r);
     if (i >= nz) continue;
     const T si = m_rsqrt(floor_at(A[i * ld + nz], T(1e-12)));
@@ -197,9 +198,7 @@ MPCQ_HD void ipm_box_solve(const Team& tm, int nz, int iters, T* A, T* vec, cons
       const int i = own(r);
       if (i >= nz) continue;
       T res = hz[r] + g[r] - zl[r] + zu[r];
-      T a = T(1) / sl[r], b = T(1) / su[r];
-      sli[r] = a;
-      sui[r] = b;
+      const T a = T(1) / sl[r], b = T(1) / su[r];
       v[r] = fmadd(-fmadd(-su[r], zu[r], mu), b, fmadd(fmadd(-sl[r], zl[r], mu), a, -res));
       A[i * ld + i] = mul_rn(mul_rn(A[i * ld + nz], s[r]), s[r]) + fmadd(zl[r], a, mul_rn(zu[r], b));
     }
@@ -214,47 +213,55 @@ MPCQ_HD void ipm_box_solve(const Team& tm, int nz, int iters, T* A, T* vec, cons
     }
     tm.sync();
 
-    // ---- right-looking Cholesky, lower triangle.  Column j's trailing
-    // update L(i, k) -= (L(i, j) d_j)(L(k, j) d_j), j < k <= i, runs over the
-    // flattened triangle; column j itself is scaled by d_j during column
-    // j + 1's update, which does not read it.  The factor's diagonal is
-    // kept only as its reciprocal d (dinv) ----
-    T dprev = T(0);
-    for (int j = 0; j < nz; ++j) {
-      const T dj = m_rsqrt(floor_at(A[j * ld + j], T(1e-12)));
-      MPCQ_UNROLL
-      for (int r = 0; r < R; ++r)
-        if (own(r) == j) dinv[r] = dj;
-      if (j > 0)
-        for (int i = j + ln; i < nz; i += NL) A[i * ld + j - 1] = mul_rn(A[i * ld + j - 1], dprev);
-      // A index of (j + 1, j + 1): element (a, c) of the trailing block is
-      // (j + 1 + a, j + 1 + c)
-      const int m = nz - 1 - j, total = m * (m + 1) / 2, base = (j + 1) * (ld + 1);
-      for (int e0 = ln; e0 < total; e0 += CHOL_BATCH * NL) {
-        int at[CHOL_BATCH], ai[CHOL_BATCH], ak[CHOL_BATCH];
-        T lik[CHOL_BATCH], lij[CHOL_BATCH], lkj[CHOL_BATCH];
+    // ---- right-looking Cholesky, lower triangle, by panels of CHOL_PANEL
+    // columns.  Step j of a panel: d_j, then each lane takes rows i > j
+    // (lane-strided): l = L(i, j) d_j, stored scaled where i is past the
+    // panel, and L(i, k) -= l (L(k, j) d_j) for the panel's columns k > j,
+    // k <= i; every lane forms the panel rows' L(k, j) d_j itself, and those
+    // entries are stored scaled after the panel's last step.  Then the
+    // trailing block past the panel takes the panel's columns in one pass:
+    // each element loaded once, its updates in column order, stored once.
+    // Every element's products are those of the column-by-column form, in
+    // its order.  The factor's diagonal is kept only as its reciprocal d
+    // (dinv) ----
+    for (int j0 = 0; j0 < nz; j0 += CHOL_PANEL) {
+      const int pe = j0 + CHOL_PANEL < nz ? j0 + CHOL_PANEL : nz;
+      for (int j = j0; j < pe; ++j) {
+        const T dj = m_rsqrt(floor_at(A[j * ld + j], T(1e-12)));
         MPCQ_UNROLL
-        for (int u = 0; u < CHOL_BATCH; ++u) {
-          at[u] = -1;
-          if (e0 + u * NL < total) {
-            const int code = tri[e0 + u * NL], a = code >> 8, c = code & 255;
-            at[u] = base + a * ld + c;
-            ai[u] = base - 1 + a * ld;
-            ak[u] = base - 1 + c * ld;
+        for (int r = 0; r < R; ++r)
+          if (own(r) == j) dinv[r] = dj;
+        T lk[CHOL_PANEL - 1];
+        MPCQ_UNROLL
+        for (int q = 0; q < CHOL_PANEL - 1; ++q)
+          lk[q] = j + 1 + q < pe ? mul_rn(A[(j + 1 + q) * ld + j], dj) : T(0);
+        for (int i = j + 1 + ln; i < nz; i += NL) {
+          const T lij = mul_rn(A[i * ld + j], dj);
+          if (i >= pe) A[i * ld + j] = lij;
+          MPCQ_UNROLL
+          for (int q = 0; q < CHOL_PANEL - 1; ++q) {
+            const int k = j + 1 + q;
+            if (k < pe && k <= i) A[i * ld + k] = fmadd(-lij, lk[q], A[i * ld + k]);
           }
         }
-        MPCQ_UNROLL
-        for (int u = 0; u < CHOL_BATCH; ++u)
-          if (at[u] >= 0) {
-            lik[u] = A[at[u]];
-            lij[u] = A[ai[u]];
-            lkj[u] = A[ak[u]];
-          }
-        MPCQ_UNROLL
-        for (int u = 0; u < CHOL_BATCH; ++u)
-          if (at[u] >= 0) A[at[u]] = fmadd(-mul_rn(lij[u], dj), mul_rn(lkj[u], dj), lik[u]);
+        tm.sync();
       }
-      dprev = dj;
+      // the panel rows of its columns, scaled (a lane a column)
+      for (int j = j0 + ln; j < pe; j += NL) {
+        const T dj = m_rsqrt(floor_at(A[j * ld + j], T(1e-12)));
+        for (int i = j + 1; i < pe; ++i) A[i * ld + j] = mul_rn(A[i * ld + j], dj);
+      }
+      // the trailing block (pe + a, pe + c), c <= a, over the flattened
+      // triangle, a prefix of the table's (only a full panel leaves one)
+      const int m = nz - pe, total = m * (m + 1) / 2, base = pe * (ld + 1);
+      for (int e = ln; e < total; e += NL) {
+        const int code = tri[e], a = code >> 8, c = code & 255;
+        const int at = base + a * ld + c, ai = (pe + a) * ld + j0, ak = (pe + c) * ld + j0;
+        T x = A[at];
+        MPCQ_UNROLL
+        for (int p = 0; p < CHOL_PANEL; ++p) x = fmadd(-A[ai + p], A[ak + p], x);
+        A[at] = x;
+      }
       tm.sync();
     }
 
@@ -298,8 +305,10 @@ MPCQ_HD void ipm_box_solve(const Team& tm, int nz, int iters, T* A, T* vec, cons
       dzl[r] = dzu[r] = T(0);
       if (own(r) >= nz) continue;
       const T dz = v[r];
-      dzl[r] = mul_rn(fmadd(-zl[r], dz, fmadd(-sl[r], zl[r], mu)), sli[r]);
-      dzu[r] = mul_rn(fmadd(zu[r], dz, fmadd(-su[r], zu[r], mu)), sui[r]);
+      // 1 / sl and 1 / su formed again: held through the factorisation they
+      // cost kernel B registers past its 80
+      dzl[r] = mul_rn(fmadd(-zl[r], dz, fmadd(-sl[r], zl[r], mu)), T(1) / sl[r]);
+      dzu[r] = mul_rn(fmadd(zu[r], dz, fmadd(-su[r], zu[r], mu)), T(1) / su[r]);
       pmin = nan_min(pmin, nan_min(nan_min(step_ratio(sl[r], dz), step_ratio(su[r], -dz)),
                                    nan_min(step_ratio(zl[r], dzl[r]), step_ratio(zu[r], dzu[r]))));
     }

@@ -30,28 +30,34 @@
 //
 // What bounds them on the H100: the IPM's per-scenario latency (nz dependent
 // Cholesky columns and 2 nz dependent substitution steps, times `iters`, on
-// one warp), which only many resident warps hide; shared memory per block
-// sets how many reside.  The design keeps one scenario a warp and cuts the
-// block to what is live.  Kernel B's shared memory holds one packed nz x
-// (nz + 1) matrix (H, then H and the factor), g, the two 13 x nz condensing
-// maps M (dead once the IPM starts: the IPM's s and z and the solution lie
-// over them), two d vectors and a two-stage buffer of J: J stays in device
-// memory and is streamed one stage at a time by cp.async, the next stage in
-// flight while this one computes, once for the condensing and once for the
-// dX recurrence (kernel C's precedent: reading J from L2 beat staging it).
-// 12,752 B at N = 10, 132,912 B at N = 40.  Kernel F
-// keeps J staged (it has no copy in device memory) and its defects: 20,344 B
-// at N = 10, 168,584 B at N = 40.  Both are built for
-// nz <= 160 (N <= 40, ops/sqp.py FUSED_N_MAX, the JAX package's ceiling):
-// one instantiation per R = ceil(nz / 32) register slots a lane.  Up to
-// R = 2 (N <= 16) kernel B is held to 128 registers, so that 16 warps can
-// reside per SM, as many as the shared memory allows at N = 10; kernel F,
-// held by its shared memory to 10 warps there, keeps the registers of its
-// linearisation.  Nothing is
-// reduced across blocks, so a NaN in one scenario leaves every other
-// scenario bitwise unchanged.  Kernel F's linearisation runs on a quarter of
-// the lanes kernel A would give it per SM (one warp per scenario instead of
-// 17 threads per stage).
+// one warp), which only many resident warps hide; shared memory and registers
+// per SM set how many reside, and from 16 warps an SM at N = 10 the SM's
+// instruction issue and shared-memory accesses bind as well (the Cholesky by
+// panels in ipm_box.cuh cuts those).  The design keeps one scenario a warp and
+// cuts each scenario's workspace to what is live.  Kernel B's shared memory
+// holds, a scenario, one packed nz x (nz + 1) matrix (H, then H and the
+// factor), g, one 13 x nz condensing map M (dead once the IPM starts: the
+// IPM's s and z, its triangle table and the solution lie over it) and two d
+// vectors: 8,904 B at N = 10, 131,144 B at N = 40.  J stays in device memory
+// and is read where it lies, once for the condensing and once for the dX
+// recurrence: in the map's recurrence every lane reads the same entry (one
+// broadcast load through L1), in d's and dX's the 13 lanes of a row read one
+// stage row.  Up to R = 2 (N <= 16) a block holds SQP_BLOCK_WARPS scenarios,
+// one a warp, which share the 1 KB the card reserves a block, and ptxas is
+// asked for SQP_MIN_BLOCKS such blocks an SM: at N = 10 12 blocks of two fit
+// the 233,472 B of an SM, 24 warps, at no more than 80 registers a thread.
+// Past R = 2 a block is one warp, and shared memory admits 1-9 of them an SM
+// (9 at N = 17, 6 at N = 20, 1 at N = 40); at R = 3 ptxas is asked for 9, so
+// that registers do not cut that below shared memory's count.  Kernel F
+// keeps J staged (it has no copy in device memory) and its defects, one warp
+// a block: 18,264 B at N = 10, 168,584 B at N = 40, and the registers of its
+// linearisation.  Both are built
+// for nz <= 160 (N <= 40, ops/sqp.py FUSED_N_MAX, the JAX package's ceiling):
+// one instantiation per R = ceil(nz / 32) register slots a lane.  Nothing is
+// reduced across warps, so a NaN in one scenario leaves every other scenario,
+// its block's other warp included, bitwise unchanged.  Kernel F's
+// linearisation runs on a quarter of the lanes kernel A would give it per SM
+// (one warp per scenario instead of 17 threads per stage).
 
 #include "condense.cuh"
 #include "ipm_box.cuh"
@@ -61,19 +67,36 @@ namespace mpcq {
 
 // Register slots a lane of kernels B and F holds: nz <= 32 FUSED_SLOTS.
 constexpr int FUSED_SLOTS = 5;
+// Kernel B up to R = 2 register slots a lane (N <= 16): scenarios (warps) a
+// block, and the resident blocks an SM its registers are fitted to.
+constexpr int SQP_BLOCK_WARPS = 2;
+constexpr int SQP_MIN_BLOCKS = 12;
+// Kernel B at R = 3 (N = 17-24, one warp a block): the blocks shared memory
+// admits at N = 17 (24,516 B a block), so that registers (at most 224 a
+// thread) admit as many.
+constexpr int SQP_R3_MIN_BLOCKS = 9;
 
-// Elements of the region that holds the condensing maps M (2 x 13 x nz),
-// then the IPM's vectors and the solution zf (nz): the larger of the two
-// (the maps up to nz = 93).
+// Kernel B's scenarios (warps) a block, and the resident blocks an SM that
+// ptxas fits its registers to, at R register slots a lane: the one place
+// the kernel, its launcher and the occupancy query read them from.
+MPCQ_HD constexpr int sqp_warps(int R) { return R <= 2 ? SQP_BLOCK_WARPS : 1; }
+MPCQ_HD constexpr int sqp_min_blocks(int R) {
+  return R <= 2 ? SQP_MIN_BLOCKS : R == 3 ? SQP_R3_MIN_BLOCKS : 1;
+}
+// Kernel B's scenarios a block at horizon N.
+MPCQ_HD constexpr int sqp_block_warps(int N) { return sqp_warps((N * SU + 31) / 32); }
+
+// Elements of the region that holds the condensing map M (13 x nz), then
+// the IPM's vectors and the solution zf (nz): the larger of the two (the
+// map up to nz = 41).
 MPCQ_HD int64_t sqp_maps_size(int nz) {
-  const int64_t maps = 2 * SX * int64_t(nz), ipm = ipm_vec_size(nz) + nz;
-  return maps > ipm ? maps : ipm;
+  const int64_t map = SX * int64_t(nz), ipm = ipm_vec_size(nz) + nz;
+  return map > ipm ? map : ipm;
 }
 
 // Kernel B's and F's shared workspace of one scenario (elements of T): the
-// packed matrix A (nz x ld), g (nz), the maps region Mb, db (2 x 13), then
-// J: kernel B's two-stage stream buffer, or kernel F's staged J
-// (N x 17 x 13) and defects r (N x 13).
+// packed matrix A (nz x ld), g (nz), the maps region Mb, db (2 x 13), then,
+// for kernel F, its staged J (N x 17 x 13) and defects r (N x 13).
 template <typename T> struct SqpWork {
   T *A, *g, *Mb, *db, *J;
   MPCQ_HD SqpWork(T* ws, int N) {
@@ -86,28 +109,25 @@ template <typename T> struct SqpWork {
   }
 };
 
-MPCQ_HD int64_t sqp_common_size(int N) {
+// Kernel B's workspace of one scenario.
+MPCQ_HD int64_t sqp_ws_size(int N) {
   const int nz = N * SU;
   return packed_size(nz) + nz + sqp_maps_size(nz) + 2 * SX;
 }
-// Kernel B's workspace: the common part and the stream buffer.
-MPCQ_HD int64_t sqp_ws_size(int N) { return sqp_common_size(N) + 2 * J_STAGE; }
-// Kernel F's: the common part, J staged and the defects.
-MPCQ_HD int64_t sqp_step_ws_size(int N) {
-  return sqp_common_size(N) + int64_t(N) * (J_STAGE + SX);
-}
+// Kernel F's: kernel B's, J staged and the defects.
+MPCQ_HD int64_t sqp_step_ws_size(int N) { return sqp_ws_size(N) + int64_t(N) * (J_STAGE + SX); }
 
-// The step after J: condense, IPM, KKT, dX.  js is J's source, rg the
-// defects (device or shared memory).
-template <int R, typename T, typename Team, typename JSrc>
-MPCQ_HD void sqp_body(const Team& tm, int N, int iters, const Weights<T>& wt, const JSrc& js,
+// The step after J: condense, IPM, KKT, dX.  J and the defects rg lie in
+// device or shared memory.
+template <int R, typename T, typename Team>
+MPCQ_HD void sqp_body(const Team& tm, int N, int iters, const Weights<T>& wt, const T* J,
                       const SqpWork<T>& w, const T* rg, const T* dx0, const T* ex0, const T* gu,
                       const T* lbg, const T* ubg, const T* zl0, const T* zu0, T* z_out,
                       T* dX_out, T* kkt_out, T* zl_out, T* zu_out) {
   const int nz = N * SU, ld = nz + 1, ln = tm.lane, NL = Team::size;
   T *A = w.A, *g = w.g, *db = w.db;
 
-  condense_packed(tm, N, wt, js, w.Mb, db, A, g, rg, dx0, ex0);
+  condense_packed(tm, N, wt, J, w.Mb, db, A, g, rg, dx0, ex0);
   for (int i = ln; i < nz; i += NL) g[i] = g[i] + gu[i];
   tm.sync();
 
@@ -127,19 +147,19 @@ MPCQ_HD void sqp_body(const Team& tm, int N, int iters, const Weights<T>& wt, co
   T kkt = tm.max(part);
   if (ln == 0) kkt_out[0] = kkt;
 
-  // ---- dX forward recurrence, J from its source again ----
-  js.prefetch(tm, 0);
+  // ---- dX forward recurrence, J read again ----
   int cur = 0;
   for (int row = ln; row < SX; row += NL) {
     db[row] = dx0[row];
     dX_out[row] = dx0[row];
   }
   tm.sync();
-  for (int k = 0; k < N; ++k) {
-    if (k + 1 < N) js.prefetch(tm, k + 1);
+  // J_k by a pointer stepped a stage at a time: one base register (from J
+  // indexed afresh at each k the compiler kept an address per (j, row))
+  const T* Jk = J;
+  for (int k = 0; k < N; ++k, Jk += J_STAGE) {
     const T* xk = db + cur * SX;
     T* xn = db + (1 - cur) * SX;
-    const T* Jk = js.stage(tm, k);
     for (int row = ln; row < SX; row += NL) {
       T acc = rg[k * SX + row];
       for (int j = 0; j < SX; ++j) acc = acc + Jk[j * SX + row] * xk[j];
@@ -152,16 +172,15 @@ MPCQ_HD void sqp_body(const Team& tm, int N, int iters, const Weights<T>& wt, co
   }
 }
 
-// Kernel B's scenario: J streamed from device memory.
+// Kernel B's scenario: J read from device memory.
 template <int R, typename T, typename Team>
 MPCQ_HD void sqp_from_J_scenario(const Team& tm, int N, int iters, const Weights<T>& wt,
                                  const T* Jg, const T* rg, const T* dx0, const T* ex0,
                                  const T* gu, const T* lbg, const T* ubg, const T* zl0,
                                  const T* zu0, T* ws, T* z_out, T* dX_out, T* kkt_out,
                                  T* zl_out, T* zu_out) {
-  SqpWork<T> w(ws, N);
-  sqp_body<R>(tm, N, iters, wt, StreamedJ<T>{Jg, w.J, N}, w, rg, dx0, ex0, gu, lbg, ubg, zl0,
-              zu0, z_out, dX_out, kkt_out, zl_out, zu_out);
+  sqp_body<R>(tm, N, iters, wt, Jg, SqpWork<T>(ws, N), rg, dx0, ex0, gu, lbg, ubg, zl0, zu0,
+              z_out, dX_out, kkt_out, zl_out, zu_out);
 }
 
 // Kernel F's scenario: linearise (X, U) into the staged J and r, then kernel
@@ -188,7 +207,7 @@ MPCQ_HD void sqp_step_scenario(const Team& tm, int N, int iters, const ModelCons
   // r_k = x+_k - X_{k+1}, as the hybrid pipeline's glue forms it
   for (int e = tm.lane; e < N * SX; e += Team::size) rs[e] = rs[e] - X[SX + e];
   tm.sync();
-  sqp_body<R>(tm, N, iters, wt, StagedJ<T>{Js, N}, w, (const T*)rs, dx0, ex0, gu, lbg, ubg, zl0,
+  sqp_body<R>(tm, N, iters, wt, (const T*)Js, w, (const T*)rs, dx0, ex0, gu, lbg, ubg, zl0,
               zu0, z_out, dX_out, kkt_out, zl_out, zu_out);
 }
 
@@ -202,12 +221,14 @@ MPCQ_HD DragView<T> drag_of(int64_t b, const T* Xb, const T* wb, const T* L, con
 }  // namespace mpcq
 
 // Dynamic shared memory of one block of the card's (f32) kernels, in bytes.
-// Kernel B: 12,752 at N = 10, 132,912 at N = 40; kernel F: 20,344 and
-// 168,584.  The warm path reads and writes its duals in device memory and
-// adds nothing here.
+// Kernel B: 17,808 at N = 10 (two scenarios of 8,904), 131,144 at N = 40
+// (one); kernel F: 18,264 and 168,584.  The warm path reads and writes its
+// duals in device memory and adds nothing here.
 extern "C" int64_t mpcq_sqp_ws_bytes(int N) {
-  return mpcq::sqp_ws_size(N) * int64_t(sizeof(float));
+  return mpcq::sqp_block_warps(N) * mpcq::sqp_ws_size(N) * int64_t(sizeof(float));
 }
+// Kernel B's scenarios (warps) a block at horizon N.
+extern "C" int mpcq_sqp_block_warps(int N) { return mpcq::sqp_block_warps(N); }
 extern "C" int64_t mpcq_sqp_step_ws_bytes(int N) {
   return mpcq::sqp_step_ws_size(N) * int64_t(sizeof(float));
 }
@@ -215,25 +236,31 @@ extern "C" int64_t mpcq_sqp_step_ws_bytes(int N) {
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
+// Kernel B: scenario blockIdx.x * warps + warp, its workspace the warp's
+// slice of the block's; a warp past B returns (no warp waits on another).
 template <int R>
-__global__ void __launch_bounds__(32, (R <= 2 ? 16 : 1))
+__global__ void __launch_bounds__(32 * mpcq::sqp_warps(R), mpcq::sqp_min_blocks(R))
 mpcq_sqp_fused_kernel(const float* __restrict__ J, const float* __restrict__ r,
                       const float* __restrict__ dx0, const float* __restrict__ ex0,
                       const float* __restrict__ gu, const float* __restrict__ lb,
                       const float* __restrict__ ub, const float* __restrict__ zl0,
                       const float* __restrict__ zu0, float* __restrict__ z,
                       float* __restrict__ dX, float* __restrict__ kkt,
-                      float* __restrict__ zl, float* __restrict__ zu, int N, int iters,
-                      mpcq::Weights<float> wt) {
+                      float* __restrict__ zl, float* __restrict__ zu, int64_t B, int N,
+                      int iters, mpcq::Weights<float> wt) {
   extern __shared__ float ws[];
-  const int64_t b = blockIdx.x;
+  constexpr int warps = mpcq::sqp_warps(R);
+  const int warp = int(threadIdx.x) / 32;
+  const int64_t b = int64_t(blockIdx.x) * warps + warp;
+  if (b >= B) return;
   const int nz = N * mpcq::SU;
-  mpcq::WarpTeam tm{int(threadIdx.x)};
+  mpcq::WarpTeam tm{int(threadIdx.x) % 32};
   mpcq::sqp_from_J_scenario<R, float>(
       tm, N, iters, wt, J + b * N * mpcq::J_STAGE, r + b * N * mpcq::SX,
       dx0 + b * mpcq::SX, ex0 + b * (N + 1) * mpcq::SX, gu + b * nz, lb + b * nz,
-      ub + b * nz, zl0 ? zl0 + b * nz : nullptr, zu0 ? zu0 + b * nz : nullptr, ws,
-      z + b * nz, dX + b * (N + 1) * mpcq::SX, kkt + b, zl + b * nz, zu + b * nz);
+      ub + b * nz, zl0 ? zl0 + b * nz : nullptr, zu0 ? zu0 + b * nz : nullptr,
+      ws + warp * mpcq::sqp_ws_size(N), z + b * nz, dX + b * (N + 1) * mpcq::SX, kkt + b,
+      zl + b * nz, zu + b * nz);
 }
 
 template <int R>
@@ -270,11 +297,13 @@ extern "C" int mpcq_sqp_fused(const float* J, const float* r, const float* dx0,
   const mpcq::Weights<float> wt = mpcq::weights_from<float>(weights);
   return mpcq::with_slots<mpcq::FUSED_SLOTS>(N * mpcq::SU, [&](auto slots) {
     constexpr int R = decltype(slots)::value;
+    constexpr int warps = mpcq::sqp_warps(R);
     cudaError_t err = mpcq::allow_smem(mpcq_sqp_fused_kernel<R>, smem);
     if (err != cudaSuccess) return int(err);
     if (B > 0)
-      mpcq_sqp_fused_kernel<R><<<dim3(unsigned(B)), 32, smem, (cudaStream_t)stream>>>(
-          J, r, dx0, ex0, gu, lb, ub, zl0, zu0, z, dX, kkt, zl, zu, N, iters, wt);
+      mpcq_sqp_fused_kernel<R><<<dim3(unsigned((B + warps - 1) / warps)), 32 * warps, smem,
+                                 (cudaStream_t)stream>>>(J, r, dx0, ex0, gu, lb, ub, zl0, zu0, z,
+                                                         dX, kkt, zl, zu, B, N, iters, wt);
     return int(cudaGetLastError());
   });
 }
@@ -301,23 +330,29 @@ extern "C" int mpcq_sqp_step(const float* X, const float* U, const float* Xb,
   });
 }
 
-// Resident blocks (one warp each) per SM of kernel B (step = 0) or kernel F
-// (step = 1) at horizon N, from the occupancy API; -1 past FUSED_SLOTS.
+// Resident blocks per SM of kernel B (step = 0; mpcq_sqp_block_warps(N)
+// warps each) or kernel F (step = 1; one warp each) at horizon N, from the
+// occupancy API; -1 past FUSED_SLOTS.
 extern "C" int mpcq_sqp_occupancy(int step, int N) {
   return mpcq::with_slots<mpcq::FUSED_SLOTS>(N * mpcq::SU, [&](auto slots) {
     constexpr int R = decltype(slots)::value;
     return step ? mpcq::resident_blocks(mpcq_sqp_step_kernel<R>, size_t(mpcq_sqp_step_ws_bytes(N)))
-                : mpcq::resident_blocks(mpcq_sqp_fused_kernel<R>, size_t(mpcq_sqp_ws_bytes(N)));
+                : mpcq::resident_blocks(mpcq_sqp_fused_kernel<R>, size_t(mpcq_sqp_ws_bytes(N)),
+                                        32 * mpcq::sqp_warps(R));
   });
 }
 
 #else
+#include <limits>
 #include <type_traits>
 #include <vector>
 
 namespace {
 
-// Kernel B on the host: one serial lane (lanes = 1) or a 32-thread team.
+// Kernel B on the host: one serial lane (lanes = 1), a 32-thread team
+// (lanes = 32), or (lanes = 0) the card's blocks: mpcq_sqp_block_warps(N)
+// teams of 32 threads side by side, each on its slice of one block's
+// workspace, which starts as NaN so that a read before a write shows.
 int sqp_fused_host(int lanes, const double* J, const double* r, const double* dx0,
                    const double* ex0, const double* gu, const double* lb, const double* ub,
                    const double* zl0, const double* zu0, const double* weights, double* z,
@@ -326,15 +361,20 @@ int sqp_fused_host(int lanes, const double* J, const double* r, const double* dx
   const int nz = N * mpcq::SU;
   if (nz > 256) return -1;
   const mpcq::Weights<double> wt = mpcq::weights_from<double>(weights);
-  std::vector<double> ws(size_t(mpcq::sqp_ws_size(N)));
-  return mpcq::run_host_team(lanes, B, [&](const auto& tm, int64_t b) {
+  const int64_t size = mpcq::sqp_ws_size(N);
+  const int warps = lanes == 0 ? mpcq::sqp_block_warps(N) : 1;
+  std::vector<double> ws(size_t(warps * size), std::numeric_limits<double>::quiet_NaN());
+  auto scenario = [&](const auto& tm, int64_t b, int w) {
     constexpr int R = mpcq::host_slots<std::decay_t<decltype(tm)>>;
     mpcq::sqp_from_J_scenario<R, double>(
         tm, N, iters, wt, J + b * N * mpcq::J_STAGE, r + b * N * mpcq::SX,
         dx0 + b * mpcq::SX, ex0 + b * (N + 1) * mpcq::SX, gu + b * nz, lb + b * nz,
-        ub + b * nz, zl0 ? zl0 + b * nz : nullptr, zu0 ? zu0 + b * nz : nullptr, ws.data(),
-        z + b * nz, dX + b * (N + 1) * mpcq::SX, kkt + b, zl + b * nz, zu + b * nz);
-  });
+        ub + b * nz, zl0 ? zl0 + b * nz : nullptr, zu0 ? zu0 + b * nz : nullptr,
+        ws.data() + w * size, z + b * nz, dX + b * (N + 1) * mpcq::SX, kkt + b, zl + b * nz,
+        zu + b * nz);
+  };
+  if (lanes == 0) return mpcq::run_block_teams<32>(warps, B, scenario);
+  return mpcq::run_host_team(lanes, B, [&](const auto& tm, int64_t b) { scenario(tm, b, 0); });
 }
 
 // Kernel F on the host, likewise.
@@ -363,7 +403,8 @@ int sqp_step_host(int lanes, const double* X, const double* U, const double* Xb,
 }  // namespace
 
 // Host builds of the same code (f64), for the CPU tests: one serial lane,
-// and (host32) 32 threads that run the card's lane split and syncs.
+// (host32) 32 threads that run the card's lane split and syncs, and (kernel
+// B's host_block) the card's block of such teams.
 #define MPCQ_SQP_FUSED_ARGS                                                                \
   const double *J, const double *r, const double *dx0, const double *ex0, const double *gu, \
       const double *lb, const double *ub, const double *zl0, const double *zu0,             \
@@ -376,6 +417,9 @@ extern "C" int mpcq_sqp_fused_host_f64(MPCQ_SQP_FUSED_ARGS) {
 }
 extern "C" int mpcq_sqp_fused_host32_f64(MPCQ_SQP_FUSED_ARGS) {
   return sqp_fused_host(32, MPCQ_SQP_FUSED_PASS);
+}
+extern "C" int mpcq_sqp_fused_host_block_f64(MPCQ_SQP_FUSED_ARGS) {
+  return sqp_fused_host(0, MPCQ_SQP_FUSED_PASS);
 }
 
 #define MPCQ_SQP_STEP_ARGS                                                                 \

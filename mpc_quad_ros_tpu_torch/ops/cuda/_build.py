@@ -53,6 +53,7 @@ DEVICE_ENTRIES = {
     "mpcq_mirror": [_P, _P, _I64, _I, _I, _P],
     "mpcq_elem": [_P, _P, _I64, _I, _I, _P],
     "mpcq_sqp_occupancy": [_I, _I],
+    "mpcq_sqp_block_warps": [_I],
     "mpcq_box_qp_occupancy": [_I],
     "mpcq_lin_occupancy": [_I],
     "mpcq_riccati_occupancy": [_I],
@@ -67,6 +68,8 @@ HOST_ENTRIES = {
     "mpcq_lin_host_f64": [_P] * 6 + [_I, _P, _P, _I64, _I, _P],
     "mpcq_sqp_fused_host_f64": [_P] * 15 + [_I64, _I, _I],
     "mpcq_sqp_fused_host32_f64": [_P] * 15 + [_I64, _I, _I],
+    "mpcq_sqp_fused_host_block_f64": [_P] * 15 + [_I64, _I, _I],
+    "mpcq_sqp_block_warps": [_I],
     "mpcq_sqp_step_host_f64": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I],
     "mpcq_sqp_step_host32_f64": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I],
     "mpcq_condense_host_f64": [_P] * 9 + [_I64, _I],

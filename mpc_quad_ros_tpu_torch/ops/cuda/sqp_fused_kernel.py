@@ -9,9 +9,10 @@ _fused_from_J_kernel`` (the "hybrid" pipeline; IPM core:
 "fused" pipeline).  The CUDA source of both is ``csrc/sqp_fused_kernel.cu``
 with ``csrc/condense.cuh``, ``csrc/ipm_box.cuh`` and, for F,
 ``csrc/model.cuh`` (one warp per scenario, one packed nz x (nz + 1) matrix
-in shared memory, kernel B streaming J from device memory; bounded by the
-IPM's latency per scenario, which resident warps hide — see the source's
-header).
+and one condensing map a scenario in shared memory, kernel B reading J from
+device memory and holding two scenarios a block up to N = 16; bounded by
+the IPM's latency per scenario, which resident warps hide, and past 16
+warps an SM by the SM's throughput — see the source's header).
 
 Kernel B's inputs: J (B, N, 17, 13), r (B, N, 13), dx0 (B, 13), ex0
 (B, N+1, 13), gu / lb / ub (B, nz); q, p (13) and rw (4) weight floats;

@@ -80,8 +80,9 @@ from .qp import qp_kkt_residual, solve_box_qp_pdip, solve_box_qp_projected_newto
 # (mpc_quad_ros_tpu/ops/sqp.py:67).  Kernels B and F are built for nz = 4 N
 # <= 160 (five register slots a lane); one packed nz x (nz + 1) matrix a
 # scenario keeps them inside an H100 block's 232,448 B there: kernel B's
-# mpcq_sqp_ws_bytes(N) is 12,752 B at N = 10 and 132,912 B at N = 40;
-# kernel F's 168,584 B; kernel E's 129,760 B at nz = 160.  The warm
+# block, mpcq_sqp_ws_bytes(N), is 17,808 B at N = 10 (two scenarios) and
+# 131,144 B at N = 40 (one); kernel F's 168,584 B; kernel E's 129,760 B at
+# nz = 160.  The warm
 # duals add nothing (read and written in device memory).  Past it a dense-H
 # method falls back to the Riccati backend, whatever the pipeline.  A
 # constant, so the CPU and the card dispatch alike.

@@ -112,8 +112,10 @@ def test_kernel_source_on_host_matches_plain(step, host_lib, warm):
 def test_workspace_fits_up_to_fused_n_max(host_lib):
     limit = 232_448          # the shared memory an H100 block may opt into
     n = sqp.FUSED_N_MAX
+    # kernel F: kernel B's one-scenario block at N = 40 and its staged J and
+    # defects
     assert (host_lib.mpcq_sqp_step_ws_bytes(n)
-            == host_lib.mpcq_sqp_ws_bytes(n) + 4 * (n * (17 * 13 + 13) - 2 * 17 * 13))
+            == host_lib.mpcq_sqp_ws_bytes(n) + 4 * n * (17 * 13 + 13))
     assert host_lib.mpcq_sqp_step_ws_bytes(n) <= limit < host_lib.mpcq_sqp_step_ws_bytes(50)
     assert (host_lib.mpcq_condense_ws_bytes(n) < host_lib.mpcq_box_qp_ws_bytes(4 * n)
             < host_lib.mpcq_sqp_ws_bytes(n) <= limit)

@@ -17,7 +17,15 @@ B, E and F on the CPU, float64, at every register-slot count the card uses.
   perturbed trajectories of ``gn_step_inputs`` the condensed H at N = 40 is
   ill-conditioned enough that they differ by ~1e-6 in f64 (12 iterations
   amplify the rounding), whichever team runs the kernel.
-- The shared-memory sizes of the new layout: one packed matrix a scenario."""
+- Kernel B's block walk (``mpcq_sqp_fused_host_block_f64``): as many
+  32-thread teams side by side as the card's block has warps, each on its
+  slice of one block's workspace, which starts as NaN; against the plain
+  version and bitwise against the one-warp walk, and a NaN in one warp's
+  scenario (the first warp's or the second's) leaves its block-mate bitwise
+  unchanged.  Only at nz = 12 and 40: past nz = 64 a block is one warp, the
+  one-warp walk above.  Two scenarios, one block.
+- The shared-memory sizes of the layout: one packed matrix and one
+  condensing map a scenario."""
 
 import numpy as np
 import pytest
@@ -34,7 +42,10 @@ from mpc_quad_ros_tpu_torch.ops.sqp import MPCConfig, SQPSolver
 from test_torch_common import host_library, jax_params, port_params, ptr, rgp_batch, t
 
 B, ITERS, BAD = 4, 12, 2
+BLOCK_B = 2
 HORIZONS = (3, 10, 17, 40)
+# the horizons at which kernel B's block holds two warps
+BLOCK_HORIZONS = (3, 10)
 TEAMS = {"serial": "", "lanes32": "32"}
 STEP = ("dx0", "ex0", "gu", "lb", "ub")
 f64 = dict(dtype=torch.float64)
@@ -89,20 +100,21 @@ def _empty(shape, n=1):
     return [torch.empty(shape, **f64) for _ in range(n)]
 
 
-def _step_out(N):
+def _step_out(N, b=B):
     nz = 4 * N
-    return _empty((B, nz)) + _empty((B, N + 1, 13)) + _empty((B,)) + _empty((B, nz), 2)
+    return _empty((b, nz)) + _empty((b, N + 1, 13)) + _empty((b,)) + _empty((b, nz), 2)
 
 
 def _weights(inp):
     return torch.tensor([v for ws in inp["w"] for v in ws], **f64)
 
 
-def _run_b(lib, team, inp, duals, J):
-    out, w = _step_out(inp["N"]), _weights(inp)      # alive through the call
+def _run_b(lib, team, inp, duals, J, b=B):
+    """Kernel B's host entry on the first b scenarios."""
+    out, w = _step_out(inp["N"], b), _weights(inp)      # alive through the call
     rc = getattr(lib, f"mpcq_sqp_fused_host{team}_f64")(
         ptr(J), *map(ptr, _b_args(inp)[1:]), *map(ptr, duals or (None, None)), ptr(w),
-        *map(ptr, out), B, inp["N"], ITERS)
+        *map(ptr, out), b, inp["N"], ITERS)
     assert rc == 0
     return out
 
@@ -158,6 +170,30 @@ def test_kernel_b_host_matches_plain(case, host_lib, team, warm):
     _isolated(out, _run_b(host_lib, TEAMS[team], case, duals, J_bad))
 
 
+@pytest.mark.parametrize("bad", [0, 1], ids=["nan_warp0", "nan_warp1"])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("case", BLOCK_HORIZONS, indirect=True, ids=lambda N: f"N{N}")
+def test_kernel_b_block_walk(case, host_lib, warm, bad):
+    """The card's block of kernel B on the host: two warps' teams, one
+    condensing map a scenario, J read where it lies."""
+    N = case["N"]
+    assert host_lib.mpcq_sqp_block_warps(N) == BLOCK_B
+    duals = [d[:BLOCK_B].contiguous() for d in case["duals"]] if warm else None
+    inp = dict(case, **{k: case[k][:BLOCK_B].contiguous() for k in ("J", "r") + STEP})
+    ref = sqp_fused_kernel.fused_sqp_from_J_plain(*_b_args(inp), *case["w"], ITERS, duals)
+    out = _run_b(host_lib, "_block", inp, duals, inp["J"], BLOCK_B)
+    _check_step(case, out, ref)
+    for a, b in zip(out, _run_b(host_lib, "32", inp, duals, inp["J"], BLOCK_B)):
+        assert torch.equal(a, b)
+    # a NaN in warp `bad`'s scenario; its block-mate's outputs unchanged
+    J_bad = inp["J"].clone()
+    J_bad[bad, N // 2, 5, 8] = float("nan")
+    out_bad = _run_b(host_lib, "_block", inp, duals, J_bad, BLOCK_B)
+    assert torch.isnan(out_bad[0][bad]).any()
+    for a, b in zip(out_bad, out):
+        assert torch.equal(a[1 - bad], b[1 - bad])
+
+
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
 @pytest.mark.parametrize("team", TEAMS)
 def test_kernel_e_host_matches_plain(case, host_lib, team, warm):
@@ -188,16 +224,26 @@ def test_kernel_f_host_matches_plain(case, host_lib, team, warm):
 
 
 def test_packed_layout_sizes(host_lib):
-    """One nz x (nz + 1) matrix a scenario: kernel B 12,752 B at N = 10
-    (36,144 B with its three matrices and J staged), kernel E 8,440 B at
-    nz = 40 (22,400 B), the triangle table included; both fit an H100 block
-    at FUSED_N_MAX = 40."""
+    """One nz x (nz + 1) matrix a scenario: kernel B 8,904 B a scenario at
+    N = 10 (packed matrix, g, one 13 x nz map, two d vectors; 12,752 B with
+    two maps and J's stream buffer, 36,144 B with three matrices and J
+    staged), two scenarios a block there; kernel E 8,440 B at nz = 40
+    (22,400 B), the triangle table included; both fit an H100 block at
+    FUSED_N_MAX = 40."""
     limit = 232_448
-    assert host_lib.mpcq_sqp_ws_bytes(10) == 4 * (40 * 41 + 40 + 26 * 40 + 26 + 2 * 221) == 12_752
+    assert host_lib.mpcq_sqp_block_warps(10) == 2
+    # two warps a block up to nz = 64 (R = 2 register slots a lane), one past it
+    assert (host_lib.mpcq_sqp_block_warps(16), host_lib.mpcq_sqp_block_warps(17)) == (2, 1)
+    assert host_lib.mpcq_sqp_ws_bytes(10) == 2 * 4 * (40 * 41 + 40 + 13 * 40 + 26) == 2 * 8_904
+    assert host_lib.mpcq_sqp_step_ws_bytes(10) == 4 * (40 * 41 + 40 + 13 * 40 + 26 + 10 * (221 + 13)) == 18_264
     assert host_lib.mpcq_box_qp_ws_bytes(40) == 4 * (40 * 41 + 2 * 40 + 780 // 2) == 8_440
-    assert host_lib.mpcq_sqp_ws_bytes(10) <= 14 * 1024 and host_lib.mpcq_box_qp_ws_bytes(40) <= 10 * 1024
+    assert host_lib.mpcq_sqp_ws_bytes(10) // 2 <= 9 * 1024 and host_lib.mpcq_box_qp_ws_bytes(40) <= 10 * 1024
+    # at N = 40 one scenario a block, its map region the IPM's vectors and table
+    # (2 * 160 + 12,720 // 2) and the solution (160), past the 13 x 160 map
     n = sqp.FUSED_N_MAX
-    assert host_lib.mpcq_sqp_ws_bytes(n) == 132_912 and host_lib.mpcq_sqp_step_ws_bytes(n) == 168_584
+    assert host_lib.mpcq_sqp_block_warps(n) == 1
+    assert host_lib.mpcq_sqp_ws_bytes(n) == 4 * (160 * 161 + 160 + (2 * 160 + 6_360 + 160) + 26) == 131_144
+    assert host_lib.mpcq_sqp_step_ws_bytes(n) == 168_584
     assert host_lib.mpcq_sqp_step_ws_bytes(n) <= limit
     # kernel E's own ceiling: nz = 214
     assert host_lib.mpcq_box_qp_ws_bytes(214) <= limit < host_lib.mpcq_box_qp_ws_bytes(215)

@@ -11,10 +11,12 @@ and kernel B's shared memory up to FUSED_N_MAX, on the CPU in float64.
 - The kernel's own source built with g++ for the host against the plain
   version: 1e-12 (measured 3e-15), and a NaN in one scenario leaves every
   other scenario bitwise unchanged.
-- ``mpcq_sqp_ws_bytes`` of the host build: kernel B's workspace (one packed
-  nz x (nz + 1) matrix, J streamed) is 12,752 bytes at N=10 and 132,912 at
-  ``FUSED_N_MAX`` = 40, the JAX package's ceiling, under an H100 block's
-  232,448 bytes; its shared memory alone would pass that only at N=54.
+- ``mpcq_sqp_ws_bytes`` of the host build: kernel B's block (one packed
+  nz x (nz + 1) matrix and one condensing map a scenario, J read from device
+  memory) is 17,808 bytes at N=10 (two scenarios) and 131,144 at
+  ``FUSED_N_MAX`` = 40 (one), the JAX package's ceiling, under an H100
+  block's 232,448 bytes; its shared memory alone would pass that only at
+  N=54.
 - On a CUDA device: ``test_torch_cuda_kernels.py`` and
   ``test_torch_cuda_paths.py`` (JAX-free, so that they collect on the GPU
   host)."""
@@ -115,7 +117,8 @@ def test_kernel_source_on_host_matches_plain(host_lib, N):
 
 def test_fused_n_max_is_kernel_b_shared_memory_ceiling(host_lib):
     ws = host_lib.mpcq_sqp_ws_bytes
-    assert (ws(10), ws(40)) == (12_752, 132_912)
+    # a block: two scenarios of 8,904 B at N = 10, one at N = 40
+    assert (ws(10), ws(40)) == (2 * 8_904, 131_144)
     assert ws(sqp.FUSED_N_MAX) <= H100_SMEM_PER_BLOCK
     # the shared memory is no longer what stops kernel B at FUSED_N_MAX
     assert ws(53) <= H100_SMEM_PER_BLOCK < ws(54)
