@@ -322,6 +322,10 @@ N_R3, RESIDENT_WARPS_MIN_R3 = 17, 9
 # Kernel C's resident warps per SM at N = 40 must pass the 11 that its
 # workspace allowed with K and kff in shared memory (19,584 B a block).
 RICCATI_WARPS_BEFORE = 11
+# Kernel A's resident warps per SM: its blocks of 128 threads (39,936 B) with
+# the registers fitted to 5 of them reach 20; this is that less one block
+# (the PR 6 design's 16), with no spill.
+LIN_WARPS_MIN = 16
 # Kernel D's resident warps per SM at N = 10 must pass the ~11 that J staged
 # whole and H as a full nz x (nz + 1) matrix allowed (19,824 B a block).
 CONDENSE_WARPS_BEFORE = 11
@@ -522,11 +526,14 @@ def phase_residency(regs: dict) -> None:
     lib = _build.load_library()
     rows = {}
     blocks = lib.mpcq_lin_occupancy(10)
-    row = {"kernel": "lin_kernel", "instantiation": "lin", "N": 10,
-           "smem_bytes": lib.mpcq_lin_ws_bytes(10), **regs.get("lin", {}),
+    row = {"kernel": "lin_kernel", "instantiation": "lin", "N": 10, "tile_columns": 128,
+           "threads_per_block": 128, "smem_bytes": lib.mpcq_lin_ws_bytes(10),
+           "spill_stores_bytes": 0, **regs.get("lin", {}),
            "resident_blocks_per_sm": blocks, "resident_warps_per_sm": 4 * blocks}
     emit("residency", **row)
     check(blocks > 0, f"residency: kernel A does not launch: {row}")
+    check(row["resident_warps_per_sm"] >= LIN_WARPS_MIN and row["spill_stores_bytes"] == 0,
+          f"residency: kernel A keeps fewer than {LIN_WARPS_MIN} warps per SM or spills: {row}")
     for N in (10, N_LONG):
         blocks = lib.mpcq_riccati_occupancy(N)
         row = {"kernel": "riccati_ipm", "instantiation": "riccati", "N": N,
@@ -613,17 +620,26 @@ def phase_kernel_a(device) -> dict:
     X_bad[bad, 3, 4] = float("nan")
     nan_isolated = isolated(bad, (xp, J), lin_kernel.linearize(X_bad, U, aug, f, dt))
     del X_bad
+    # a mid-sized batch's narrower tiles (64 columns a block at 4096
+    # scenarios, 32 at 1000): bitwise the full batch's tiles of 128
+    narrow_bitwise = True
+    for b in (4096, 1000):
+        head = lambda a: a[:b].contiguous()
+        xp_b, J_b = lin_kernel.linearize(head(X), head(U), aug.map(head), f, dt)
+        narrow_bitwise &= torch.equal(xp_b, xp[:b]) and torch.equal(J_b, J[:b])
 
     ms = timed_ms(lambda: lin_kernel.linearize(X, U, aug, f, dt), reps=10)
     plain_ms = timed_ms(lambda: lin_kernel.linearize_plain(f, X, U, aug, dt), reps=2)
     work = bounds.lin_work(SOLVE_B, solver.cfg.n_nodes, N_BASIS)
-    emit("kernel_a", B=SOLVE_B, **err, nan_isolated=nan_isolated, ms=ms, plain_ms=plain_ms,
+    emit("kernel_a", B=SOLVE_B, **err, nan_isolated=nan_isolated,
+         narrow_tiles_bitwise=narrow_bitwise, ms=ms, plain_ms=plain_ms,
          smem_bytes=_build.load_library().mpcq_lin_ws_bytes(solver.cfg.n_nodes), **work,
          tol_xp=LIN_XP_TOL, tol_J=LIN_J_TOL)
     check(torch.isfinite(J).all() and torch.isfinite(xp).all(), "kernel A: non-finite output")
     check(err["xp_vs_plain"] <= LIN_XP_TOL and err["xp_vs_f64"] <= LIN_XP_TOL, f"kernel A xp: {err}")
     check(err["J_vs_plain"] <= LIN_J_TOL and err["J_vs_f64"] <= LIN_J_TOL, f"kernel A J: {err}")
     check(nan_isolated, "kernel A: a NaN scenario changed another scenario's outputs")
+    check(narrow_bitwise, "kernel A: a narrower tile changed the outputs' bits")
     return {"max_abs_err": max(err["xp_vs_plain"], err["J_vs_plain"]), "ms": ms, "plain_ms": plain_ms,
             **work}
 

@@ -13,11 +13,12 @@ solve cell's next Gauss-Newton step at B scenarios, N=10 (kernel A on the
 trajectory, kernels B and D fed kernel A's J, kernel E on kernel D's QP,
 kernel F on the trajectory; B, E and F cold and warm-started from the first
 solve's duals; kernel J on the A and B blocks of the first 1 and 127
-scenarios' J), kernel B again on the same cell's step at the horizons and
-batches of ``B_STEPS``, cold and warm, and kernel C at N=40 on kernel A's J
-of the same cell's step at that horizon.  Kernel C's entry takes a device
-scratch where the library has ``mpcq_riccati_scratch_bytes`` (its other
-arguments are the same).
+scenarios' J), kernel A again at the horizons, batches and basis sizes of
+``LIN_STEPS`` (each after one solve of its own), kernel B again on the same
+cell's step at the horizons and batches of ``B_STEPS``, cold and warm, and
+kernel C at N=40 on kernel A's J of the same cell's step at that horizon.
+Kernel C's entry takes a device scratch where the library has
+``mpcq_riccati_scratch_bytes`` (its other arguments are the same).
 Kernels G, H and I (``mpcq_fma``, ``mpcq_mirror``, ``mpcq_elem``) run at the
 bench's shapes, whatever B: G at ``phases.REGISTER_SHAPE`` and
 ``STREAMING_SHAPE`` on ``phases.fma_input``, H and I on the transpose
@@ -26,7 +27,7 @@ and 32.  One JSON line per kernel and start: whether the two libraries'
 outputs are bitwise equal (their bit patterns, so a NaN where both have it
 agrees), their largest difference, and each library's CUDA-event time,
 taken in turns (other, this, this, other); the rows of
-kernels H, I and J add each library's device time of one launch from
+kernels A, H, I and J add each library's device time of one launch from
 ``torch.profiler`` (200 launches).  The launch counters of this
 checkout's wrappers are not touched: the calls go to the C entries.
 
@@ -109,6 +110,20 @@ def riccati_step_inputs(B: int, device, N: int = 40) -> dict:
             "iters": cfg.qp_iters, "N": N}
 
 
+def lin_inputs(B: int, device, N: int, nb: int) -> dict:
+    """Kernel A's arguments at the solve cell's next step at horizon N with
+    nb RGP basis vectors an axis (0: no drag), after one warm-up solve (the
+    Riccati backend past the dense kernels' horizons)."""
+    solver, carry, x0, y_ref, rgp = operating_point(
+        B, device, mu_scale=0.3, N=N, n_basis=max(nb, 1),
+        qp_method="riccati" if N > 16 else "pdip")
+    carry, _ = solver.solve_batch(carry, x0, y_ref, y_ref[:, -1], rgp if nb else None)
+    cfg = solver.cfg
+    return {"args": [carry.X], "X": carry.X, "U": carry.U, "N": N, "nb": nb,
+            "aug": fold_drag(rgp).map(lambda a: a.contiguous()) if nb else None,
+            "consts": _build.host_floats(model_constants(solver.f.params, cfg.dt))}
+
+
 def _ptrs(tensors):
     return [None if t is None else t.data_ptr() for t in tensors]
 
@@ -116,10 +131,10 @@ def _ptrs(tensors):
 def run_a(lib, inp, _duals):
     X, U, aug = inp["X"], inp["U"], inp["aug"]
     B, N = U.shape[:2]
+    _, _, aug_ptrs, nb = lin_kernel.drag_args(aug, B)
     out = [torch.empty((B, N, 13), device=X.device), torch.empty((B, N, 17, 13), device=X.device)]
-    rc = lib.mpcq_lin(X.data_ptr(), U.data_ptr(), *_ptrs((aug.X, aug.w, aug.L, aug.sigma_f)),
-                      aug.X.shape[-1], *_ptrs(out), B, N, inp["consts"].data_ptr(),
-                      torch.cuda.current_stream().cuda_stream)
+    rc = lib.mpcq_lin(X.data_ptr(), U.data_ptr(), *aug_ptrs, nb, *_ptrs(out), B, N,
+                      inp["consts"].data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check_status("compare_build kernel A", rc)
     return out
 
@@ -233,11 +248,22 @@ def fma_inputs(shape, resident: bool, device) -> dict:
 # fill the card 31 times over at a sixteenth of the cell's memory.
 B_STEPS = ((10, 128), (17, 65536), (17, 128), (20, 65536), (20, 128), (40, 4096))
 
+# Kernel A's launches beside the N=10 step at B, as (N, scenarios, basis
+# vectors an axis): the small-batch step and the ROS node (B=1 at N=10 and at
+# N=5 with 20), the closed loop (16384), the model without drag, a ragged
+# last tile (10,000 columns: tiles of 32, the last of 16), and the Riccati
+# slice (N=40).
+LIN_STEPS = ((10, 1, 10), (5, 1, 20), (10, 16384, 10), (10, 65536, 0), (10, 1000, 10),
+             (40, 65536, 10))
+
 # (kernel, its run, whether it takes warm duals, its inputs: the N=10 step,
-# kernel B's steps "step{N}x{scenarios}", kernel J's blocks of its first 1 or
-# 127 scenarios, the N=40 Riccati step, kernel G's shapes, the probe's tiles
-# at reps = 4 or 32)
-KERNELS = (("A", run_a, False, "step"), ("B", run_b, True, "step"),
+# kernel A's steps "lin{N}x{scenarios}nb{nb}", kernel B's steps
+# "step{N}x{scenarios}", kernel J's blocks of its first 1 or 127 scenarios,
+# the N=40 Riccati step, kernel G's shapes, the probe's tiles at reps = 4 or
+# 32)
+KERNELS = (("A", run_a, False, "step"),
+           *(("A", run_a, False, f"lin{n}x{b}nb{nb}") for n, b, nb in LIN_STEPS),
+           ("B", run_b, True, "step"),
            *(("B", run_b, True, f"step{n}x{b}") for n, b in B_STEPS),
            ("C", run_c, False, "riccati"), ("D", run_d, False, "step"),
            ("E", run_e, True, "step"), ("F", run_f, True, "step"),
@@ -248,7 +274,8 @@ KERNELS = (("A", run_a, False, "step"), ("B", run_b, True, "step"),
            ("I", _run_probe("mpcq_elem"), False, "probe4"),
            ("I", _run_probe("mpcq_elem"), False, "probe32"))
 # the kernel names the profiler's rows are matched on, by kernel
-PROFILED = {"H": "mirror_kernel", "I": "elem_kernel", "J": "condense_ab"}
+PROFILED = {"A": "mpcq_lin_kernel", "H": "mirror_kernel", "I": "elem_kernel",
+            "J": "condense_ab"}
 # profiler launches per library and profiled row
 PROFILE_REPS = 200
 # the transpose probe's batch and width
@@ -261,6 +288,9 @@ def make_inputs(key: str, B: int, inputs: dict, device) -> dict:
         return inputs[key]
     if key == "step":
         inp = step_inputs(B, device)
+    elif key.startswith("lin"):
+        n, b, nb = map(int, key[len("lin"):].replace("nb", "x").split("x"))
+        inp = lin_inputs(b, device, n, nb)
     elif key.startswith("step"):
         n, b = map(int, key[len("step"):].split("x"))
         inp = step_inputs(b, device, N=n)
@@ -295,7 +325,8 @@ def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
             torch.cuda.synchronize()
             row = {"kernel": name, "start": start if warm else "-",
                    "B": inp["args"][0].shape[0], "N": inp["N"],
-                   **{k: inp[k] for k in ("reps", "chains", "steps", "resident") if k in inp},
+                   **{k: inp[k] for k in ("nb", "reps", "chains", "steps", "resident")
+                      if k in inp},
                    "bitwise": all(same_bits(a, b) for a, b in zip(outs["this"], outs["other"])),
                    "max_abs_diff": max((a - b).abs().max().item()
                                        for a, b in zip(outs["this"], outs["other"])),

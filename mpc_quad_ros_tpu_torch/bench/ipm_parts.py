@@ -56,14 +56,14 @@ VARIANTS = {
 }
 
 
-def variant_checkout(name: str, edits, root: pathlib.Path,
-                     source: str = "ipm_box.cuh") -> pathlib.Path:
-    """A copy of this package under root/name with the edits applied to
-    csrc/<source>."""
+def variant_checkout(name: str, edits, root: pathlib.Path, source: str = "ipm_box.cuh",
+                     package: pathlib.Path = PACKAGE) -> pathlib.Path:
+    """A copy of `package` (this one unless given) under root/name with the
+    edits applied to csrc/<source>."""
     dst = root / name
     shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(PACKAGE, dst / PACKAGE.name, ignore=shutil.ignore_patterns("__pycache__"))
-    header = dst / PACKAGE.name / "csrc" / source
+    shutil.copytree(package, dst / package.name, ignore=shutil.ignore_patterns("__pycache__"))
+    header = dst / package.name / "csrc" / source
     src = header.read_text()
     for old, new in edits:
         if src.count(old) != 1:

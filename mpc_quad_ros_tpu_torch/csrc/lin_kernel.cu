@@ -9,34 +9,40 @@
 //
 // What bounds it on the H100: operations.  The drag's means cost 3 nb
 // exponentials and 6 nb IEEE divisions per model evaluation, four
-// evaluations a step, each a multi-instruction sequence; the 17 tangents
-// that ride on the step are ~2-3 operations per primal one.  J is the only
-// large stream (221 floats a column, written once).
+// evaluations a step; the 17 tangents that ride on the step are the
+// derivative half of each dual operation, with three IEEE divisions an
+// evaluation.  J is the only large stream (221 floats a column, written
+// once: at 1 ms a sixth of the card's memory rate).
 //
-// Design: a block takes COLS = 32 consecutive columns (b, k) on THREADS =
-// 128 threads, in three phases separated by block barriers:
-// 1. tangent 0 of each column, one thread a column (one warp): model.cuh's
-//    lin_item on dual numbers with the drag recorded: at each RK4 stage the
-//    dual drag_mean gives the means m and the diagonal of their Jacobian jd
-//    (the JAX custom-JVP rule), kept in shared memory (24 floats a column);
-//    this item also gives x+ and row 0 of J;
-// 2. the other 16 tangents, the block's 32 x 16 items over the 128 threads
-//    (4 rounds): lin_item with the drag read back as (m, jd dvb), so they
-//    evaluate no exponential and no division by L^2 (the 3 nb exponentials
-//    and 6 nb divisions a model evaluation run once a column, not 17 times);
-//    each writes its J row into shared memory;
-// 3. the block's J rows and x+ (contiguous in device memory: 221 and 13
-//    floats a column, so 16-byte aligned at every block of 32 columns when
-//    the arrays are) leave shared memory as 16-byte stores.
-// Every item is lin_item's arithmetic, and the drag's moments come from
-// lin_item's own dual drag_mean, so xp and J are kernel F's linearisation
-// (the three pipelines' U agree bitwise).  Against one thread per (column,
-// tangent) they differ in ~0.1 % of the entries by an ulp or two, and only
-// with the drag: the compiler contracts a few of the drag's products
-// otherwise in this kernel.  128 registers a thread: the launch bound asks
-// for 4 blocks (16 warps) an SM; at 5 it spills 328 bytes and runs slower.
-// 33,024 B of shared memory a block.  Nothing is reduced across columns, so
-// a NaN in one scenario leaves every other scenario's outputs bitwise
+// Design: a block takes a tile of `cols` consecutive columns (b, k) on
+// THREADS = 128 threads, every warp busy in both passes; cols is TILE = 128
+// unless the grid would then give the card fewer than FILL_BLOCKS blocks an
+// SM (64 or 32: a mid-sized batch's blocks spread over more SMs):
+// 1. the primal, one thread a column: model.cuh's rk4 on Val numbers,
+//    recording what the tangents read besides their own derivatives
+//    (`anchor`: each RK4 stage's q, v and w, and a_m; the drag's means m and
+//    their Jacobian diagonal jd at each stage, the JAX custom-JVP rule): 65
+//    floats a column, the tile's columns side by side in shared memory.
+//    x+ leaves through the warp's stage buffer;
+// 2. after one block barrier, the tile's cols x 17 (column, tangent) items,
+//    in rounds of one a thread: model.cuh's tangent_item, dual numbers whose
+//    every value is a recorded one, so the compiler keeps the derivative
+//    half of each operation (and the rotation entries from the recorded q)
+//    and drops the rest: no exponential, no division by L^2, no read of X
+//    or U.  A warp's 32 items of a round are 32 consecutive rows of J (416
+//    floats, 16-byte aligned when J is): the lanes write them into the
+//    warp's stage buffer, then copy it out as 16-byte stores, with only warp
+//    syncs.
+// model.cuh rounds every operation explicitly, so the recorded values are
+// the dual pass's values bit for bit and xp and J are kernel F's
+// linearisation (the three pipelines' U agree bitwise), whatever each
+// kernel's compiler contracts.  65 x 128 + 4 x 416 floats = 39,936 B of
+// shared memory a block: 5 blocks an SM by shared memory, and the launch
+// bound fits the registers to them (96, no spill; 20 warps an SM).  A TMA
+// bulk store of the stage buffer would overlap J's stream with the next
+// round's arithmetic; the stores already leave without a wait (no load
+// depends on them), so it is not used.  Nothing is reduced across columns,
+// so a NaN in one scenario leaves every other scenario's outputs bitwise
 // unchanged.
 
 #include <type_traits>
@@ -46,20 +52,22 @@
 namespace mpcq {
 namespace lin {
 
-constexpr int COLS = 32, THREADS = 128;   // columns and threads per block
-constexpr int MIN_BLOCKS = 4;             // resident blocks an SM asked of the compiler
-constexpr int J_COL = NT * NX;            // J's floats per column
-constexpr int MD = 6;                     // m (3), jd (3) per RK4 stage
-
-constexpr int round4(int n) { return (n + 3) / 4 * 4; }
-// A block's shared memory in elements: the drag moments (COLS x 4 stages x
-// 6), J (COLS x 221) and x+ (COLS x 13), each region 16-byte aligned.
-constexpr int SM_MD = 0;
-constexpr int SM_J = COLS * 4 * MD;
-constexpr int SM_XP = SM_J + round4(COLS * J_COL);
-constexpr int SM_SIZE = SM_XP + round4(COLS * NX);
-static_assert(COLS * J_COL % 4 == 0 && COLS * NX % 4 == 0,
-              "a block's J and x+ start 16-byte aligned in device memory");
+constexpr int TILE = 128, THREADS = 128;   // columns and threads per block
+constexpr int WARPS = THREADS / 32;
+constexpr int MIN_BLOCKS = 5;              // resident blocks an SM asked of the compiler
+constexpr int J_COL = NT * NX;             // J's floats per column
+// A column's record, field by field (field f of tile column c at f TILE + c):
+constexpr int R_LEAF = 0;                  // stages 0-3: x[3..12] (q, v, w), 10 a stage
+constexpr int R_AM = 40;                   // a_m, the same at every stage
+constexpr int R_DRAG = 41;                 // stages 0-3: m (3), then jd (3)
+constexpr int R_FIELDS = R_DRAG + 4 * 6;
+// A block's shared memory in elements: the records, then one stage buffer a
+// warp (32 rows of 13: its x+ or its J rows of a round), 16-byte aligned.
+constexpr int STAGE = 32 * NX;
+constexpr int SM_STAGE = TILE * R_FIELDS;
+constexpr int SM_SIZE = SM_STAGE + WARPS * STAGE;
+static_assert(SM_STAGE % 4 == 0 && STAGE % 4 == 0 && TILE * J_COL % 4 == 0,
+              "stage buffers and a warp's span of J or x+ start 16-byte aligned");
 
 template <typename T> struct Args {
   const T *X, *U, *Xb, *wb, *L, *sf;
@@ -70,37 +78,63 @@ template <typename T> struct Args {
   ModelConsts<T> c;
 };
 
-// Tangent 0's drag: the scenario's DragView, stage s's (m, jd) recorded at
-// md + 6 s by model.cuh's dual drag_mean.
-template <typename T> struct RecordDrag {
+MPCQ_HD int leaf_field(int s, int slot) { return R_LEAF + 10 * s + slot - 3; }
+MPCQ_HD int drag_field(int s, int a) { return R_DRAG + 6 * s + a; }
+
+// The primal pass's drag: the scenario's DragView; stage s records into the
+// column's record rec (stride TILE).
+template <typename T> struct RecordPrimal {
   DragView<T> g;
-  T* md;
+  T* rec;
 };
 template <typename T> struct RecordStage {
   DragView<T> g;
-  T* md;
-  int nb;
+  T* rec;
+  int s, nb;
 };
-template <typename T> MPCQ_HD RecordStage<T> stage_drag(const RecordDrag<T>& r, int s) {
-  return {r.g, r.md + s * MD, r.g.nb};
+template <typename T> MPCQ_HD RecordStage<T> stage_drag(const RecordPrimal<T>& r, int s) {
+  return {r.g, r.rec, s, r.g.nb};
 }
-template <typename T> MPCQ_HD Dual<T> drag_mean(Dual<T> vb, const RecordStage<T>& r, int a) {
-  const Dual<T> m = drag_mean(vb, r.g, a, r.md + 3 + a);
-  r.md[a] = m.v;
-  return m;
+// each axis's mean and Jdiag (drag_sums, as a DragView's dual mean), recorded
+template <typename T>
+MPCQ_HD void drag_means(const Val<T>* vb, const RecordStage<T>& r, Val<T>* m) {
+  for (int a = 0; a < 3; ++a) {
+    T jd;
+    drag_sums(vb[a].v, r.g, a, m[a].v, jd);
+    r.rec[drag_field(r.s, a) * TILE] = m[a].v;
+    r.rec[drag_field(r.s, 3 + a) * TILE] = jd;
+  }
+}
+template <typename T> MPCQ_HD Val<T> anchor(const RecordStage<T>& r, Val<T> v, int slot) {
+  if (slot != ANCHOR_AM)
+    r.rec[leaf_field(r.s, slot) * TILE] = v.v;
+  else if (r.s == 0)
+    r.rec[R_AM * TILE] = v.v;
+  return v;
 }
 
-// The other tangents' drag: stage s's recorded moments, tangent jd * dvb
-// (the product the dual drag_mean forms).
-template <typename T> struct RecordedDrag {
-  const T* md;
+// The tangent pass's drag: stage s's recorded values in place of the duals'
+// values, the drag's tangent Jdiag * dvb (the product the dual mean forms).
+template <typename T> struct Recorded {
+  const T* rec;
   int nb;
 };
-template <typename T> MPCQ_HD RecordedDrag<T> stage_drag(const RecordedDrag<T>& r, int s) {
-  return {r.md + s * MD, r.nb};
+template <typename T> struct RecordedStage {
+  const T* rec;
+  int s, nb;
+};
+template <typename T> MPCQ_HD RecordedStage<T> stage_drag(const Recorded<T>& r, int s) {
+  return {r.rec, s, r.nb};
 }
-template <typename T> MPCQ_HD Dual<T> drag_mean(Dual<T> vb, const RecordedDrag<T>& r, int a) {
-  return {r.md[a], r.md[3 + a] * vb.d};
+template <typename T>
+MPCQ_HD void drag_means(const Dual<T>* vb, const RecordedStage<T>& r, Dual<T>* m) {
+  MPCQ_UNROLL
+  for (int a = 0; a < 3; ++a)
+    m[a] = {r.rec[drag_field(r.s, a) * TILE],
+            rn_mul(r.rec[drag_field(r.s, 3 + a) * TILE], vb[a].d)};
+}
+template <typename T> MPCQ_HD Dual<T> anchor(const RecordedStage<T>& r, Dual<T> v, int slot) {
+  return {r.rec[(slot == ANCHOR_AM ? R_AM : leaf_field(r.s, slot)) * TILE], v.d};
 }
 
 // Thread t of nt copies n elements from shared memory to dst (both 16-byte
@@ -120,57 +154,64 @@ template <typename T> MPCQ_HD void store_span(int t, int nt, T* dst, const T* sr
   }
 }
 
-// One block's columns [col0, col0 + ncols) on nt threads, phase by phase;
-// thread t runs its share of each phase, the caller syncs the block between
-// phases.  sm is the block's shared memory (SM_SIZE elements).
-template <typename T> struct Block {
+MPCQ_HD int clamp_rows(int left) { return left < 0 ? 0 : left < 32 ? left : 32; }
+
+// One block's tile of columns [col0, col0 + ncols), ncols <= cols <= TILE,
+// step by step; thread t (warp t / 32, lane t % 32) runs its share of each
+// step, the caller syncs the warp or the block between steps.  sm is the
+// block's shared memory (SM_SIZE elements).
+template <typename T> struct Tile {
   const Args<T> a;
   T* sm;
-  int64_t col0;
+  int64_t col0, node0;   // the first column, and its node's index in X
+  int k0;                // the first column's stage
   int ncols;
 
-  MPCQ_HD Block(const Args<T>& args, T* smem, int64_t block)
-      : a(args), sm(smem), col0(block * COLS) {
+  MPCQ_HD Tile(const Args<T>& args, T* smem, int64_t block, int cols)
+      : a(args), sm(smem), col0(block * cols) {
     const int64_t left = a.B * a.N - col0;
-    ncols = int(left < COLS ? left : COLS);
+    ncols = int(left < cols ? left : cols);
+    k0 = int(col0 % a.N);
+    node0 = col0 / a.N * (a.N + 1) + k0;
   }
-  MPCQ_HD const T* node(int64_t col) const {
-    return a.X + (col / a.N * (a.N + 1) + col % a.N) * NX;
+  // column cl's scenario, counted from the first column's
+  MPCQ_HD int scenario(int cl) const { return (k0 + cl) / a.N; }
+  MPCQ_HD const T* node(int cl) const { return a.X + (node0 + cl + scenario(cl)) * NX; }
+  MPCQ_HD T* record(int cl) const { return sm + cl; }
+  MPCQ_HD T* stage(int w) const { return sm + SM_STAGE + w * STAGE; }
+  MPCQ_HD int items() const { return ncols * NT; }
+  MPCQ_HD int rounds() const { return (items() + THREADS - 1) / THREADS; }
+  // pass 1: column t's step, recorded; x+ into its warp's stage buffer
+  MPCQ_HD void primal(int t) const {
+    if (t >= ncols) return;
+    const DragView<T> g =
+        drag_of((col0 - k0) / a.N + scenario(t), a.Xb, a.wb, a.L, a.sf, a.nb);
+    Val<T> x[NX];
+    step_item(node(t), a.U + (col0 + t) * NU, RecordPrimal<T>{g, record(t)}, a.c, x);
+    T* st = stage(t / 32) + t % 32 * NX;
+    for (int j = 0; j < NX; ++j) st[j] = x[j].v;
   }
-  MPCQ_HD T* moments(int cl) const { return sm + SM_MD + cl * 4 * MD; }
-  MPCQ_HD T* row(int cl, int i) const { return sm + SM_J + (cl * NT + i) * NX; }
-  // phase 1: tangent 0 of each column, recording the drag's moments; x+
-  MPCQ_HD void primal(int t, int nt) const {
-    for (int cl = t; cl < ncols; cl += nt) {
-      const int64_t col = col0 + cl, b = col / a.N;
-      const int nb = a.nb;
-      const DragView<T> g{nb > 0 ? a.Xb + b * 3 * nb : nullptr,
-                          nb > 0 ? a.wb + b * 3 * nb : nullptr, nb > 0 ? a.L + b * 3 : nullptr,
-                          nb > 0 ? a.sf + b * 3 : nullptr, nb};
-      Dual<T> x[NX];
-      lin_item(node(col), a.U + col * NU, RecordDrag<T>{g, moments(cl)}, 0, a.c, x);
-      T* r = row(cl, 0);
-      T* xp = sm + SM_XP + cl * NX;
-      for (int j = 0; j < NX; ++j) {
-        r[j] = x[j].d;
-        xp[j] = x[j].v;
-      }
-    }
+  // x+ of the warp's 32 columns leaves its stage buffer
+  MPCQ_HD void store_xp(int t) const {
+    const int w = t / 32, c0 = 32 * w;
+    store_span(t % 32, 32, a.xp + (col0 + c0) * NX, stage(w), clamp_rows(ncols - c0) * NX);
   }
-  // phase 2: tangents 1-16 of every column, the drag read back
-  MPCQ_HD void tangents(int t, int nt) const {
-    for (int it = t; it < ncols * (NT - 1); it += nt) {
-      const int cl = it / (NT - 1), i = 1 + it % (NT - 1);
-      const int64_t col = col0 + cl;
-      Dual<T> x[NX];
-      lin_item(node(col), a.U + col * NU, RecordedDrag<T>{moments(cl), a.nb}, i, a.c, x);
-      T* r = row(cl, i);
-      for (int j = 0; j < NX; ++j) r[j] = x[j].d;
-    }
+  // pass 2: item it = (column it / 17, tangent it % 17), its J row into warp
+  // w's stage buffer (row it % 32 of it)
+  MPCQ_HD void tangent(int it, int w) const {
+    const int cl = it / NT, i = it % NT;
+    Dual<T> x[NX];
+    tangent_item(Recorded<T>{record(cl), a.nb}, i, a.c, x);
+    T* st = stage(w) + it % 32 * NX;
+    for (int j = 0; j < NX; ++j) st[j] = x[j].d;
   }
-  MPCQ_HD void store(int t, int nt) const {
-    store_span(t, nt, a.J + col0 * J_COL, sm + SM_J, ncols * J_COL);
-    store_span(t, nt, a.xp + col0 * NX, sm + SM_XP, ncols * NX);
+  // round q's rows of warp w (32 consecutive rows of J) leave its stage buffer
+  MPCQ_HD void store_rows(int q, int w, int lane) const {
+    const int r0 = q * THREADS + 32 * w;
+    T* dst = a.J + (col0 * NT + r0) * NX;
+    const T* src = stage(w);
+    const int n = clamp_rows(items() - r0) * NX;
+    store_span(lane, 32, dst, src, n);
   }
 };
 
@@ -180,7 +221,17 @@ Args<T> args_from(const T* X, const T* U, const T* Xb, const T* wb, const T* L, 
   return {X, U, Xb, wb, L, sf, nb, xp, J, B, N, consts_from<T>(consts)};
 }
 
-MPCQ_HD int64_t blocks(int64_t B, int N) { return (B * N + COLS - 1) / COLS; }
+MPCQ_HD int64_t blocks(int64_t B, int N, int cols) { return (B * N + cols - 1) / cols; }
+
+// Columns a block: TILE, halved (down to 32) while the grid would give the
+// card fewer than FILL_BLOCKS blocks an SM, so that a mid-sized batch
+// spreads over more SMs and warps, each block's chain of rounds shorter.
+constexpr int FILL_BLOCKS = 4;
+MPCQ_HD int tile_cols(int64_t B, int N, int sms) {
+  int cols = TILE;
+  while (cols > 32 && blocks(B, N, cols) < int64_t(sms) * FILL_BLOCKS) cols /= 2;
+  return cols;
+}
 
 }  // namespace lin
 }  // namespace mpcq
@@ -194,15 +245,40 @@ extern "C" int64_t mpcq_lin_ws_bytes(int) {
 #include <cuda_runtime.h>
 
 __global__ void __launch_bounds__(mpcq::lin::THREADS, mpcq::lin::MIN_BLOCKS)
-mpcq_lin_kernel(const mpcq::lin::Args<float> a) {
+mpcq_lin_kernel(const mpcq::lin::Args<float> a, int cols) {
+  using namespace mpcq::lin;
   extern __shared__ __align__(16) float sm[];
-  const mpcq::lin::Block<float> blk(a, sm, blockIdx.x);
-  blk.primal(threadIdx.x, blockDim.x);
-  __syncthreads();
-  blk.tangents(threadIdx.x, blockDim.x);
-  __syncthreads();
-  blk.store(threadIdx.x, blockDim.x);
+  const Tile<float> tile(a, sm, blockIdx.x, cols);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  tile.primal(threadIdx.x);
+  __syncwarp();
+  tile.store_xp(threadIdx.x);
+  __syncthreads();      // every column's record is in
+  const int rounds = tile.rounds();
+  for (int q = 0; q < rounds; ++q) {
+    const int it = q * THREADS + threadIdx.x;
+    __syncwarp();       // the stage buffer's last copy is out
+    if (it < tile.items()) tile.tangent(it, w);
+    __syncwarp();
+    tile.store_rows(q, w, lane);
+  }
 }
+
+namespace {
+mpcq::SmemOnce lin_smem;   // the shared-memory attributes, once a device
+int lin_sms[64];           // SMs of devices 0-63, read at their first launch
+
+int sm_count() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  int* slot = dev >= 0 && dev < 64 ? &lin_sms[dev] : nullptr;
+  if (slot && *slot > 0) return *slot;
+  int sms = 1;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) sms = 1;
+  if (slot) *slot = sms;
+  return sms;
+}
+}  // namespace
 
 extern "C" int mpcq_lin(const float* X, const float* U, const float* Xb, const float* wb,
                         const float* L, const float* sf, int nb, float* xp, float* J,
@@ -210,13 +286,14 @@ extern "C" int mpcq_lin(const float* X, const float* U, const float* Xb, const f
   using namespace mpcq::lin;
   if ((reinterpret_cast<uintptr_t>(xp) | reinterpret_cast<uintptr_t>(J)) % 16 != 0)
     return int(cudaErrorMisalignedAddress);   // the 16-byte stores need aligned outputs
-  const size_t smem = size_t(mpcq_lin_ws_bytes(N));
-  cudaError_t err = mpcq::allow_smem(mpcq_lin_kernel, smem);
+  cudaError_t err = lin_smem(mpcq_lin_kernel);
   if (err != cudaSuccess) return int(err);
-  const int64_t nblk = blocks(B, N);
+  const int cols = tile_cols(B, N, sm_count());
+  const int64_t nblk = blocks(B, N, cols);
   if (nblk > 0)
-    mpcq_lin_kernel<<<dim3(unsigned(nblk)), THREADS, smem, (cudaStream_t)stream>>>(
-        args_from(X, U, Xb, wb, L, sf, nb, xp, J, B, N, consts));
+    mpcq_lin_kernel<<<dim3(unsigned(nblk)), THREADS, size_t(mpcq_lin_ws_bytes(N)),
+                      (cudaStream_t)stream>>>(
+        args_from(X, U, Xb, wb, L, sf, nb, xp, J, B, N, consts), cols);
   return int(cudaGetLastError());
 }
 
@@ -229,21 +306,62 @@ extern "C" int mpcq_lin_occupancy(int N) {
 #else
 #include <vector>
 
-// Host build of the same code (f64), for the CPU tests: every block's
-// phases in order, each phase's threads one after another, so the items
-// fall to the threads as on the card.
+// Host build of the same code (f64), for the CPU tests: every tile of
+// `cols` columns (32, 64 or 128) step by step, each step's threads one after
+// another, so the columns and items fall to the threads and warps as on the
+// card.
+extern "C" int mpcq_lin_tiles_host_f64(const double* X, const double* U, const double* Xb,
+                                       const double* wb, const double* L, const double* sf,
+                                       int nb, double* xp, double* J, int64_t B, int N,
+                                       const double* consts, int cols) {
+  using namespace mpcq::lin;
+  if (cols != 32 && cols != 64 && cols != TILE) return 1;
+  const Args<double> a = args_from(X, U, Xb, wb, L, sf, nb, xp, J, B, N, consts);
+  std::vector<double> sm(SM_SIZE);
+  for (int64_t blk = 0; blk < blocks(B, N, cols); ++blk) {
+    const Tile<double> tile(a, sm.data(), blk, cols);
+    for (int t = 0; t < THREADS; ++t) tile.primal(t);
+    for (int t = 0; t < THREADS; ++t) tile.store_xp(t);
+    for (int q = 0; q < tile.rounds(); ++q) {
+      for (int t = 0; t < THREADS; ++t)
+        if (q * THREADS + t < tile.items()) tile.tangent(q * THREADS + t, t / 32);
+      for (int t = 0; t < THREADS; ++t) tile.store_rows(q, t / 32, t % 32);
+    }
+  }
+  return 0;
+}
+
+// The same in tiles of TILE columns, the card's at large batches.
 extern "C" int mpcq_lin_host_f64(const double* X, const double* U, const double* Xb,
                                  const double* wb, const double* L, const double* sf,
                                  int nb, double* xp, double* J, int64_t B, int N,
                                  const double* consts) {
-  using namespace mpcq::lin;
-  const Args<double> a = args_from(X, U, Xb, wb, L, sf, nb, xp, J, B, N, consts);
-  std::vector<double> sm(SM_SIZE);
-  for (int64_t blk = 0; blk < blocks(B, N); ++blk) {
-    const Block<double> bl(a, sm.data(), blk);
-    for (int t = 0; t < THREADS; ++t) bl.primal(t, THREADS);
-    for (int t = 0; t < THREADS; ++t) bl.tangents(t, THREADS);
-    for (int t = 0; t < THREADS; ++t) bl.store(t, THREADS);
+  return mpcq_lin_tiles_host_f64(X, U, Xb, wb, L, sf, nb, xp, J, B, N, consts,
+                                 mpcq::lin::TILE);
+}
+
+// The dual pass the tangent pass takes apart: one lin_item a (column,
+// tangent) on the scenario's own drag, the primal recomputed in each (as
+// kernel F walks them); x+ from tangent 0's.  Host only (f64), for the CPU
+// test that the recorded pass gives its bits.
+extern "C" int mpcq_lin_dual_host_f64(const double* X, const double* U, const double* Xb,
+                                      const double* wb, const double* L, const double* sf,
+                                      int nb, double* xp, double* J, int64_t B, int N,
+                                      const double* consts) {
+  using namespace mpcq;
+  const ModelConsts<double> c = consts_from<double>(consts);
+  for (int64_t col = 0; col < B * N; ++col) {
+    const int64_t b = col / N;
+    const double* x0 = X + (b * (N + 1) + col % N) * NX;
+    const DragView<double> g = drag_of(b, Xb, wb, L, sf, nb);
+    for (int i = 0; i < NT; ++i) {
+      Dual<double> x[NX];
+      lin_item(x0, U + col * NU, g, i, c, x);
+      for (int j = 0; j < NX; ++j) {
+        J[(col * NT + i) * NX + j] = x[j].d;
+        if (i == 0) xp[col * NX + j] = x[j].v;
+      }
+    }
   }
   return 0;
 }

@@ -211,13 +211,6 @@ MPCQ_HD void sqp_step_scenario(const Team& tm, int N, int iters, const ModelCons
               zu0, z_out, dX_out, kkt_out, zl_out, zu_out);
 }
 
-template <typename T>
-MPCQ_HD DragView<T> drag_of(int64_t b, const T* Xb, const T* wb, const T* L, const T* sf,
-                            int nb) {
-  return {nb > 0 ? Xb + b * 3 * nb : nullptr, nb > 0 ? wb + b * 3 * nb : nullptr,
-          nb > 0 ? L + b * 3 : nullptr, nb > 0 ? sf + b * 3 : nullptr, nb};
-}
-
 }  // namespace mpcq
 
 // Dynamic shared memory of one block of the card's (f32) kernels, in bytes.

@@ -30,8 +30,10 @@ LIB_NAME = "libmpcq_kernels.so"
 # No --use_fast_math: expf / rsqrtf keep their IEEE-accurate forms.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# The host build is C++20 for std::barrier (the 32-thread team of common.cuh).
-HOST_FLAGS = ("-x", "c++", "-std=c++20", "-O2", "-fPIC", "-pthread")
+# The host build is C++20 for std::barrier (the 32-thread team of common.cuh);
+# no contraction, so each operation rounds once there as on the card's rn_*
+# functions (model.cuh).
+HOST_FLAGS = ("-x", "c++", "-std=c++20", "-O2", "-fPIC", "-pthread", "-ffp-contract=off")
 # Flags of the link step, by compiler.
 LINK_FLAGS = {"g++": ("-pthread",)}
 
@@ -66,6 +68,8 @@ DEVICE_ENTRIES = {
 }
 HOST_ENTRIES = {
     "mpcq_lin_host_f64": [_P] * 6 + [_I, _P, _P, _I64, _I, _P],
+    "mpcq_lin_dual_host_f64": [_P] * 6 + [_I, _P, _P, _I64, _I, _P],
+    "mpcq_lin_tiles_host_f64": [_P] * 6 + [_I, _P, _P, _I64, _I, _P, _I],
     "mpcq_sqp_fused_host_f64": [_P] * 15 + [_I64, _I, _I],
     "mpcq_sqp_fused_host32_f64": [_P] * 15 + [_I64, _I, _I],
     "mpcq_sqp_fused_host_block_f64": [_P] * 15 + [_I64, _I, _I],

@@ -1,10 +1,11 @@
 """Kernel A: RK4 shooting-map linearisation with the folded-RGP drag.
 
 Replaces ``mpc_quad_ros_tpu/ops/pallas/lin_kernel.py::_lin_kernel``; the CUDA
-source is ``csrc/lin_kernel.cu`` (a block of 32 columns: tangent 0 of each
-column records the drag's moments, the other 16 tangents read them back, J
-leaves shared memory as 16-byte stores; bounded by operations — see the
-source's header).
+source is ``csrc/lin_kernel.cu`` (a tile of up to 128 columns a block: each column's
+primal step once, one thread a column, recording what the tangents read;
+then the tile's 17 tangents a column, one item a thread, each warp's rows
+of J out through shared memory as 16-byte stores; bounded by operations —
+see the source's header).
 
 For every (scenario b, stage k): xp[b, k] = RK4(f, X[b, k], U[b, k], dt) and
 J[b, k, i] = d xp[b, k] / d (x, u)_i, i < 17, scenario-major:
@@ -106,23 +107,28 @@ def linearize_plain(f, X: torch.Tensor, U: torch.Tensor, aug, dt: float):
     return xp[0].clone(), J.permute(1, 2, 0, 3)
 
 
+def drag_args(aug, B: int) -> tuple[dict, dict, list, int]:
+    """The folded drag's share of kernels A's and F's arguments: its tensors
+    and their shapes (for ``_build.check_cuda_inputs``), the four pointers
+    Xb, wb, L, sigma_f (null without drag) and nb."""
+    if aug is None:
+        return {}, {}, [None] * 4, 0
+    nb = aug.X.shape[-1]
+    tensors = dict(Xb=aug.X, wb=aug.w, L=aug.L, sigma_f=aug.sigma_f)
+    shapes = dict(Xb=(B, 3, nb), wb=(B, 3, nb), L=(B, 3), sigma_f=(B, 3))
+    return tensors, shapes, [t.data_ptr() for t in tensors.values()], nb
+
+
 def _launch(X, U, aug, consts):
     B, N1, _ = X.shape
     N = N1 - 1
-    tensors = {"X": X, "U": U}
-    shapes = {"X": (B, N + 1, NX), "U": (B, N, NU)}
-    nb = 0
-    if aug is not None:
-        nb = aug.X.shape[-1]
-        tensors.update(Xb=aug.X, wb=aug.w, L=aug.L, sigma_f=aug.sigma_f)
-        shapes.update(Xb=(B, 3, nb), wb=(B, 3, nb), L=(B, 3), sigma_f=(B, 3))
-    _build.check_cuda_inputs("lin_kernel", tensors, shapes)
+    drag, drag_shapes, aug_ptrs, nb = drag_args(aug, B)
+    _build.check_cuda_inputs("lin_kernel", {"X": X, "U": U, **drag},
+                             {"X": (B, N + 1, NX), "U": (B, N, NU), **drag_shapes})
     lib = _build.load_library()
     consts = _build.host_floats(consts)
     xp = torch.empty((B, N, NX), dtype=X.dtype, device=X.device)
     J = torch.empty((B, N, NT, NX), dtype=X.dtype, device=X.device)
-    aug_ptrs = ([aug.X.data_ptr(), aug.w.data_ptr(), aug.L.data_ptr(), aug.sigma_f.data_ptr()]
-                if aug is not None else [None] * 4)
     rc = lib.mpcq_lin(X.data_ptr(), U.data_ptr(), *aug_ptrs, nb, xp.data_ptr(),
                       J.data_ptr(), B, N, consts.data_ptr(),
                       torch.cuda.current_stream(X.device).cuda_stream)

@@ -36,7 +36,7 @@ import torch
 from ..qp import qp_kkt_residual
 from . import _build
 from .condense_common import NT, NU, NX, check_weights, condense_from_J, expand_dX
-from .lin_kernel import linearize_plain, model_constants
+from .lin_kernel import drag_args, linearize_plain, model_constants
 from .qp_kernel import check_smem, ipm_box_solve
 
 
@@ -114,14 +114,10 @@ def _launch_step(X, U, dx0, ex0, gu, lb, ub, aug, consts, q, p, rw, iters, duals
     B, N1, _ = X.shape
     N = N1 - 1
     nz = N * NU
-    tensors = dict(X=X, U=U, dx0=dx0, ex0=ex0, gu=gu, lb=lb, ub=ub)
+    drag, drag_shapes, aug_ptrs, nb = drag_args(aug, B)
+    tensors = dict(X=X, U=U, dx0=dx0, ex0=ex0, gu=gu, lb=lb, ub=ub, **drag)
     shapes = dict(X=(B, N + 1, NX), U=(B, N, NU), dx0=(B, NX), ex0=(B, N + 1, NX),
-                  gu=(B, nz), lb=(B, nz), ub=(B, nz), zl0=(B, nz), zu0=(B, nz))
-    nb = 0
-    if aug is not None:
-        nb = aug.X.shape[-1]
-        tensors.update(Xb=aug.X, wb=aug.w, L=aug.L, sigma_f=aug.sigma_f)
-        shapes.update(Xb=(B, 3, nb), wb=(B, 3, nb), L=(B, 3), sigma_f=(B, 3))
+                  gu=(B, nz), lb=(B, nz), ub=(B, nz), zl0=(B, nz), zu0=(B, nz), **drag_shapes)
     if duals is not None:
         tensors.update(zl0=duals[0], zu0=duals[1])
     _build.check_cuda_inputs("sqp_step_kernel", tensors, shapes)
@@ -131,8 +127,6 @@ def _launch_step(X, U, dx0, ex0, gu, lb, ub, aug, consts, q, p, rw, iters, duals
     check_smem("sqp_step_kernel", lib.mpcq_sqp_step_ws_bytes(N), X.device, f"N={N}")
     consts = _build.host_floats(consts)
     weights = _build.host_floats(list(q) + list(p) + list(rw))
-    aug_ptrs = ([aug.X.data_ptr(), aug.w.data_ptr(), aug.L.data_ptr(), aug.sigma_f.data_ptr()]
-                if aug is not None else [None] * 4)
     out = _outputs(B, N, X)
     rc = lib.mpcq_sqp_step(X.data_ptr(), U.data_ptr(), *aug_ptrs, nb,
                            *(t.data_ptr() for t in (dx0, ex0, gu, lb, ub)), *_dual_ptrs(duals),

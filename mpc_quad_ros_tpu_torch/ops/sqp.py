@@ -231,11 +231,17 @@ class SQPSolver:
         ``step_inputs``."""
         return (xp - X[:, 1:],) + self.step_inputs(X, U, x0, y_ref, y_ref_N)
 
-    def _linearize(self, X, U, aug):
-        """Kernel A along (X, U): (xp, J)."""
+    def _model_consts(self, X) -> list[float] | None:
+        """Kernels A's and F's model constants for a launch on X's device,
+        derived at the first such launch (None on the CPU, where the plain
+        versions run)."""
         if X.is_cuda and self._lin_consts is None:
             self._lin_consts = model_constants(self.f.params, self.cfg.dt)
-        return linearize(X, U, aug, self.f, self.cfg.dt, self._lin_consts)
+        return self._lin_consts
+
+    def _linearize(self, X, U, aug):
+        """Kernel A along (X, U): (xp, J)."""
+        return linearize(X, U, aug, self.f, self.cfg.dt, self._model_consts(X))
 
     def _resolve_qp_method(self, tiled: bool = True) -> str:
         """The QP backend of this configuration, for ``solve_batch``
@@ -331,12 +337,10 @@ class SQPSolver:
         """The "fused" step: kernel F, the update."""
         cfg = self.cfg
         warm = self._warm(zl)
-        if X.is_cuda and self._lin_consts is None:
-            self._lin_consts = model_constants(self.f.params, cfg.dt)
         z, dX, kkt, zl_n, zu_n = fused_sqp_step(
             X, U, *self.step_inputs(X, U, x0, y_ref, y_ref_N), aug, self.f, cfg.dt,
             *cfg.weight_tuples(), cfg.qp_iters, duals=(zl, zu) if warm else None,
-            consts=self._lin_consts)
+            consts=self._model_consts(X))
         if warm:
             zl, zu = zl_n, zu_n
         return X + dX, U + z.reshape(U.shape), zl, zu, kkt

@@ -1,11 +1,13 @@
 """Kernel A's block layout (``csrc/lin_kernel.cu``) on the CPU, float64.
 
 - The kernel's own source built with g++ for the host runs the card's
-  partition: blocks of 32 columns, in each block tangent 0 of every column
-  (one thread a column, the drag's moments recorded per RK4 stage), then
-  the block's 32 x 16 other (column, tangent) items over its 128 threads,
-  then the stores.  B = 8 scenarios at N = 7: 56 columns, two blocks, the
-  second one ragged, scenario 4 across the boundary.
+  partition: tiles of 128 columns, in each tile the primal step of every
+  column (one thread a column, what the tangents read recorded per RK4
+  stage), x+ out through each warp's stage buffer, then the tile's 128 x 17
+  (column, tangent) items in rounds of its 128 threads, each warp's 32 rows
+  of J out through its stage buffer.  B = 24 scenarios at N = 7: 168
+  columns, two tiles, the second one ragged, scenario 18 across the
+  boundary.
 - Against the plain version (``torch.func`` jvp of the RK4 step) without
   drag and with the folded RGP drag at nb = 10 and 20 (nb = 0 is the model
   without drag): xp and J to 1e-9 (the same formulas; measured ~1e-15).
@@ -13,10 +15,15 @@
   through the RK4 step of ``make_mpc_dynamics``, the reference of the
   Pallas ``_lin_kernel``, whose interpret mode takes ~40 s a call here):
   xp and J to 1e-9.
-- NaN isolation: one scenario's trajectory poisoned leaves every other
-  scenario's xp and J bitwise unchanged.
-- The block's shared memory: 8,256 floats (the drag moments, J and x+ of 32
-  columns)."""
+- NaN isolation: one scenario's trajectory poisoned (the one across the
+  tiles' boundary) leaves every other scenario's xp and J bitwise unchanged.
+- Tiles of 32 and 64 columns (the card's width for batches that fill less
+  than a wave of it at 128): bitwise the tiles of 128.
+- The recorded pass against the dual pass it takes apart (one lin_item a
+  (column, tangent), the primal recomputed in each, as kernel F walks them):
+  xp and J bitwise.
+- The block's shared memory: 9,984 floats (the records of 128 columns, 65
+  floats each, and four stage buffers of 32 x 13)."""
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +42,7 @@ from mpc_quad_ros_tpu_torch.ops.cuda import lin_kernel
 from test_torch_common import (host_library, jax_params, jax_rgp, port_params, ptr, rgp_batch, t,
                                trajectory_inputs)
 
-B, N, BAD = 8, 7, 4
+B, N, BAD = 24, 7, 18
 DT = 0.1
 NBS = (0, 10, 20)          # basis vectors per axis; 0: no drag
 
@@ -55,15 +62,15 @@ def case(request):
     return dict(X=X, U=U, rgp=rgp, aug=aug, nb=nb)
 
 
-def _host(lib, X, U, aug):
+def _host(lib, X, U, aug, entry="mpcq_lin_host_f64", *extra):
     X, U = t(X).contiguous(), t(U).contiguous()
     consts = torch.tensor(lin_kernel.model_constants(port_params(), DT), dtype=torch.float64)
     xp = torch.empty((B, N, 13), dtype=torch.float64)
     J = torch.empty((B, N, 17, 13), dtype=torch.float64)
     leaves = (aug.X, aug.w, aug.L, aug.sigma_f) if aug is not None else (None,) * 4
     nb = aug.X.shape[-1] if aug is not None else 0
-    rc = lib.mpcq_lin_host_f64(ptr(X), ptr(U), *map(ptr, leaves), nb, ptr(xp), ptr(J), B, N,
-                               ptr(consts))
+    rc = getattr(lib, entry)(ptr(X), ptr(U), *map(ptr, leaves), nb, ptr(xp), ptr(J), B, N,
+                             ptr(consts), *extra)
     assert rc == 0
     return xp, J
 
@@ -105,10 +112,27 @@ def test_host_blocks_nan_isolated(host_lib, case):
     assert torch.equal(J_b[BAD, :3], J[BAD, :3]) and torch.equal(J_b[BAD, 4:], J[BAD, 4:])
 
 
+def test_recorded_pass_matches_dual_pass_bitwise(host_lib, case):
+    xp, J = _host(host_lib, case["X"], case["U"], case["aug"])
+    xp_d, J_d = _host(host_lib, case["X"], case["U"], case["aug"], "mpcq_lin_dual_host_f64")
+    assert torch.equal(xp.view(torch.int64), xp_d.view(torch.int64))
+    assert torch.equal(J.view(torch.int64), J_d.view(torch.int64))
+
+
+@pytest.mark.parametrize("cols", [32, 64])
+def test_tile_widths_agree_bitwise(host_lib, case, cols):
+    xp, J = _host(host_lib, case["X"], case["U"], case["aug"])
+    xp_c, J_c = _host(host_lib, case["X"], case["U"], case["aug"], "mpcq_lin_tiles_host_f64",
+                      cols)
+    assert torch.equal(xp.view(torch.int64), xp_c.view(torch.int64))
+    assert torch.equal(J.view(torch.int64), J_c.view(torch.int64))
+
+
 def test_block_shared_memory(host_lib):
-    """32 columns a block: 4 RK4 stages x (m, jd) = 24 floats, J 221 and x+
-    13 a column: 8,256 floats, 33,024 B (an H100 SM holds 6 such blocks by
-    shared memory, with 1 KB of its own a block)."""
-    cols = 32
-    assert host_lib.mpcq_lin_ws_bytes(N) == 4 * cols * (24 + 221 + 13) == 33_024
-    assert 6 * (33_024 + 1024) <= 233_472 < 7 * (33_024 + 1024)
+    """128 columns a block: the 4 RK4 stages' state (q, v, w: 40 floats), a_m,
+    and 4 stages x (m, jd) = 24 floats a column, and a stage buffer of 32 x
+    13 floats a warp: 9,984 floats, 39,936 B (an H100 SM holds 5 such blocks
+    by shared memory, with 1 KB of its own a block)."""
+    cols, warps = 128, 4
+    assert host_lib.mpcq_lin_ws_bytes(N) == 4 * (cols * (40 + 1 + 24) + warps * 32 * 13) == 39_936
+    assert 5 * (39_936 + 1024) <= 233_472 < 6 * (39_936 + 1024)
