@@ -21,7 +21,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 4. kernel B (condense + IPM + KKT + dX) against the f64 plain version, the
    KKT floor, and NaN isolation between scenarios;
 5. kernel C (the Riccati-factorised box IPM) at B=65536, N=40 against its
-   f32 and f64 plain versions, dX against the rollout of dU, NaN isolation;
+   f32 and f64 plain versions, dX against the rollout of dU, NaN isolation,
+   its share of its bound; its residency at N=160 and one launch there
+   (B=1024: finite, its errors read);
 6. kernels D (condensing: H, g, M, d), E (the standalone box-QP IPM) and F
    (the whole Gauss-Newton step) at B=65536, N=10 against their f32 and f64
    plain versions, NaN isolation; kernel J (condensing fed A and B, the
@@ -253,6 +255,10 @@ RIC_DU_TOL = 1e-3
 # dX against the f64 affine rollout of the kernel's own dU: f32 rounding of a
 # 40-stage recurrence of 17-term sums, relative to the largest |dX|.
 RIC_DX_REL_TOL = 1e-4
+# Kernel C's longest horizon in the catalogue of users' horizons (N = 20-160)
+# and its batch there: the launch must run and stay finite; its errors
+# against the f64 plain version are read, not judged.
+N_RIC_MAX, B_RIC_MAX = 160, 1024
 # The Riccati solve on the card (f32) against the CPU's (f64), N=40: the
 # same bound as the condensed path's, 4e-2.
 RIC_VS_CPU_TOL = QP_Z_TOL
@@ -721,17 +727,49 @@ def phase_kernel_c(device) -> dict:
         *args, *w, cfg.qp_iters), reps=1)
     work = bounds.riccati_work(SOLVE_B, N_LONG, cfg.qp_iters)
     lib = _build.load_library()
+    finite = bool(torch.isfinite(du).all() and torch.isfinite(dX).all())
+    del args, du, dX, J, X, U, xp, solver, carry
+    long = kernel_c_longest(device)
     emit("kernel_c", B=SOLVE_B, N=N_LONG, **err, nan_isolated=nan_isolated,
          smem_bytes=lib.mpcq_riccati_ws_bytes(N_LONG),
          scratch_bytes=SOLVE_B * lib.mpcq_riccati_scratch_bytes(N_LONG), ms=ms,
-         plain_ms=plain_ms, **work, tol_du=RIC_DU_TOL, tol_dX_rel=RIC_DX_REL_TOL)
-    check(torch.isfinite(du).all() and torch.isfinite(dX).all(), "kernel C: non-finite output")
+         plain_ms=plain_ms, **work, bound_share=work["bound_ms"] / ms,
+         tol_du=RIC_DU_TOL, tol_dX_rel=RIC_DX_REL_TOL, **long)
+    check(long[f"launched_n{N_RIC_MAX}"] and long[f"resident_warps_per_sm_n{N_RIC_MAX}"] > 0,
+          f"kernel C does not launch at N={N_RIC_MAX}: {long}")
+    check(finite, "kernel C: non-finite output")
     check(err["du_kernel_vs_f64"] < RIC_DU_TOL and err["du_plain_vs_f64"] < RIC_DU_TOL,
           f"kernel C dU: {err}")
     check(err["dX_vs_rollout_of_du"] <= RIC_DX_REL_TOL * max(1.0, err["dX_max_abs"]),
           f"kernel C dX is not the rollout of dU: {err}")
     check(nan_isolated, "kernel C: a NaN scenario changed another scenario's outputs")
     return {"max_abs_err": err["du_kernel_vs_f64"], "ms": ms, "plain_ms": plain_ms, **work}
+
+
+def kernel_c_longest(device) -> dict:
+    """Kernel C at the users' longest horizon: its shared memory, resident
+    warps per SM, and one launch at B_RIC_MAX (finite outputs; dU against
+    the f64 plain version and dX against the f64 rollout of dU, read)."""
+    lib = _build.load_library()
+    solver, carry, x0, y_ref, aug = kernel_inputs(B_RIC_MAX, device, N=N_RIC_MAX,
+                                                  qp_method="riccati")
+    cfg = solver.cfg
+    w = cfg.weight_tuples()
+    xp, J = lin_kernel.linearize(carry.X, carry.U, aug, solver.f, cfg.dt)
+    args = [J, *solver.riccati_inputs(carry.X, carry.U, x0, y_ref, y_ref[:, -1], xp)]
+    du, dX = riccati_kernel.riccati_ipm_from_J(*args, *w, cfg.qp_iters)
+    torch.cuda.synchronize()
+    args64 = [a.double() for a in args]
+    du_d, _ = riccati_kernel.solve_ocp_box_riccati_ipm_plain(*args64, *w, cfg.qp_iters)
+    roll = riccati_kernel.affine_rollout(*args64[:3], du.double())
+    n = N_RIC_MAX
+    return {f"smem_bytes_n{n}": lib.mpcq_riccati_ws_bytes(n),
+            f"resident_warps_per_sm_n{n}": lib.mpcq_riccati_occupancy(n),
+            f"launched_n{n}": bool(torch.isfinite(du).all() and torch.isfinite(dX).all()),
+            f"B_n{n}": B_RIC_MAX,
+            f"du_kernel_vs_f64_n{n}": (du.double() - du_d).abs().max().item(),
+            f"dX_vs_rollout_of_du_n{n}": (dX.double() - roll).abs().max().item(),
+            f"dX_max_abs_n{n}": roll.abs().max().item()}
 
 
 def condense_stats(kernel, plain, args, w, poison) -> tuple:

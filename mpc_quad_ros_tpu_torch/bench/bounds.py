@@ -117,13 +117,16 @@ def sqp_step_work(B: int, N: int, nb: int, iters: int, warm: bool = False) -> di
 
 def riccati_work(B: int, N: int, iters: int) -> dict:
     """Kernel C: per stage and iteration the backward sweep (A'P and A'PA at
-    13^3 multiply-adds each, B'P, B'PA and S'K at 4 13^2, B'PB, the p
-    update, the 4x4 solve) and the rollout and forward pass over J."""
+    13^3 multiply-adds each, B'P, B'PA and S'K at 4 13^2, B'PB, A'p, the p
+    update and B'p, the 4x4 solve) and the forward pass over J and K; per
+    stage twice in all the rollout over J (the cold start's and the final
+    one: inside the loop dX moves by alpha ddx)."""
     per_stage = 2 * (2 * NX ** 3 + 3 * NU * NX * NX + NU * NU * NX + NX * NX + 2 * NU * NX
-                     + 2 * NT * NX) + 250
+                     + NT * NX) + 250
+    rollouts = 2 * 2 * NT * NX
     n_in = N * NT * NX + N * NX + NX + N * NX + N * NU + NX + 2 * N * NU
     n_out = N * NU + (N + 1) * NX
-    return bound(F32 * B * (n_in + n_out), B * N * iters * per_stage)
+    return bound(F32 * B * (n_in + n_out), B * N * (iters * per_stage + rollouts))
 
 
 def fma_work(elements: int, chains: int, steps: int) -> dict:

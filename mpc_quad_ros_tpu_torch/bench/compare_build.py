@@ -2,7 +2,7 @@
 one process, on the same inputs.
 
     python -m mpc_quad_ros_tpu_torch.bench.compare_build --other PATH [--B 65536]
-        [--solves split,hybrid]
+        [--solves split,hybrid] [--riccati]
 
 PATH is another checkout of this repository (an earlier commit, unpacked).
 Its ``ops/cuda/_build.py`` builds its own ``csrc/`` into its own ``build/``,
@@ -16,7 +16,8 @@ solve's duals; kernel J on the A and B blocks of the first 1 and 127
 scenarios' J), kernel A again at the horizons, batches and basis sizes of
 ``LIN_STEPS`` (each after one solve of its own), kernel B again on the same
 cell's step at the horizons and batches of ``B_STEPS``, cold and warm, and
-kernel C at N=40 on kernel A's J of the same cell's step at that horizon.
+kernel C on kernel A's J of the same cell's step at the horizons and
+batches of ``RICCATI_STEPS``.
 Kernel C's entry takes a device scratch where the library has
 ``mpcq_riccati_scratch_bytes`` (its other arguments are the same).
 Kernels G, H and I (``mpcq_fma``, ``mpcq_mirror``, ``mpcq_elem``) run at the
@@ -26,7 +27,9 @@ probe's tiles (``probe_hybrid.probe_input``: B=16384, nz=40) at reps = 4
 and 32.  One JSON line per kernel and start: whether the two libraries'
 outputs are bitwise equal (their bit patterns, so a NaN where both have it
 agrees), their largest difference, and each library's CUDA-event time,
-taken in turns (other, this, this, other); the rows of
+taken in turns (other, this, this, other); kernel C's rows add the largest
+|du| and |dX| differences between the two libraries and of each against
+the f64 plain version on the same inputs; the rows of
 kernels A, H, I and J add each library's device time of one launch from
 ``torch.profiler`` (200 launches).  The launch counters of this
 checkout's wrappers are not touched: the calls go to the C entries.
@@ -36,6 +39,10 @@ checkout's own package in a process of its own (other, this, this, other)
 runs the solve cell's 20 chained warm-started solves at B scenarios, three
 times (``bench/phases.py::time_solves``), and its one-scenario latency
 through the small-batch step (``bench/headline.py::one_scenario_latency``).
+``--riccati`` adds, the same way, each checkout's ``probe_hybrid.
+riccati_profile`` (kernel C alone at B=1024, N = 10, 20, 40, its time a
+line in the IPM iterations) and ``riccati_breakdown`` (one Gauss-Newton
+step of the Riccati slice at B=65536, N=40 by part).
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ import sys
 import torch
 
 from ..models import fold_drag
-from ..ops.cuda import _build, condense_kernel, lin_kernel
+from ..ops.cuda import _build, condense_kernel, lin_kernel, riccati_kernel
 from ..ops.cuda.condense_common import split_AB
 from ..ops.cuda.lin_kernel import model_constants
 from . import phases
@@ -107,7 +114,7 @@ def riccati_step_inputs(B: int, device, N: int = 40) -> dict:
     xp, J = lin_kernel.linearize(carry.X, carry.U, aug, solver.f, cfg.dt)
     args = [J, *solver.riccati_inputs(carry.X, carry.U, x0, y_ref, y_ref[:, -1], xp)]
     return {"args": args, "weights": _build.host_floats([v for w in cfg.weight_tuples() for v in w]),
-            "iters": cfg.qp_iters, "N": N}
+            "weight_tuples": cfg.weight_tuples(), "iters": cfg.qp_iters, "N": N}
 
 
 def lin_inputs(B: int, device, N: int, nb: int) -> dict:
@@ -248,6 +255,11 @@ def fma_inputs(shape, resident: bool, device) -> dict:
 # fill the card 31 times over at a sixteenth of the cell's memory.
 B_STEPS = ((10, 128), (17, 65536), (17, 128), (20, 65536), (20, 128), (40, 4096))
 
+# Kernel C's steps, as (N, scenarios): the Riccati slice's horizon and two
+# on either side of it at the cell's batch, and N=40 at a batch that leaves
+# the card's SMs a few blocks each.
+RICCATI_STEPS = ((20, 65536), (40, 65536), (80, 65536), (40, 1024))
+
 # Kernel A's launches beside the N=10 step at B, as (N, scenarios, basis
 # vectors an axis): the small-batch step and the ROS node (B=1 at N=10 and at
 # N=5 with 20), the closed loop (16384), the model without drag, a ragged
@@ -259,13 +271,14 @@ LIN_STEPS = ((10, 1, 10), (5, 1, 20), (10, 16384, 10), (10, 65536, 0), (10, 1000
 # (kernel, its run, whether it takes warm duals, its inputs: the N=10 step,
 # kernel A's steps "lin{N}x{scenarios}nb{nb}", kernel B's steps
 # "step{N}x{scenarios}", kernel J's blocks of its first 1 or 127 scenarios,
-# the N=40 Riccati step, kernel G's shapes, the probe's tiles at reps = 4 or
+# kernel C's steps "riccati{N}x{scenarios}", kernel G's shapes, the probe's tiles at reps = 4 or
 # 32)
 KERNELS = (("A", run_a, False, "step"),
            *(("A", run_a, False, f"lin{n}x{b}nb{nb}") for n, b, nb in LIN_STEPS),
            ("B", run_b, True, "step"),
            *(("B", run_b, True, f"step{n}x{b}") for n, b in B_STEPS),
-           ("C", run_c, False, "riccati"), ("D", run_d, False, "step"),
+           *(("C", run_c, False, f"riccati{n}x{b}") for n, b in RICCATI_STEPS),
+           ("D", run_d, False, "step"),
            ("E", run_e, True, "step"), ("F", run_f, True, "step"),
            ("J", run_j, False, "ab1"), ("J", run_j, False, "ab127"),
            ("G", run_g, False, "fma_registers"), ("G", run_g, False, "fma_smem"),
@@ -296,8 +309,9 @@ def make_inputs(key: str, B: int, inputs: dict, device) -> dict:
         inp = step_inputs(b, device, N=n)
     elif key.startswith("ab"):
         inp = ab_inputs(make_inputs("step", B, inputs, device), int(key[2:]))
-    elif key == "riccati":
-        inp = riccati_step_inputs(B, device)
+    elif key.startswith("riccati"):
+        n, b = map(int, key[len("riccati"):].split("x"))
+        inp = riccati_step_inputs(b, device, N=n)
     elif key.startswith("fma_"):
         reg = key == "fma_registers"
         inp = fma_inputs(phases.REGISTER_SHAPE if reg else phases.STREAMING_SHAPE, reg, device)
@@ -306,6 +320,22 @@ def make_inputs(key: str, B: int, inputs: dict, device) -> dict:
                "reps": int(key[len("probe"):])}
     inputs[key] = inp
     return inp
+
+
+def riccati_diffs(inp: dict, outs: dict) -> dict:
+    """Kernel C's largest |du| and |dX| differences: this library against
+    the other, and each against the f64 plain version on the same inputs."""
+    args64 = [a.double() for a in inp["args"]]
+    ref = riccati_kernel.solve_ocp_box_riccati_ipm_plain(*args64, *inp["weight_tuples"],
+                                                         inp["iters"])
+    del args64
+    diff = lambda a, b: (a.double() - b.double()).abs().max().item()
+    row = {}
+    for i, v in enumerate(("du", "dX")):
+        row[f"{v}_this_vs_other"] = diff(outs["this"][i], outs["other"][i])
+        for k in ("this", "other"):
+            row[f"{v}_{k}_vs_f64"] = diff(outs[k][i], ref[i])
+    return row
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -331,6 +361,8 @@ def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
                    "max_abs_diff": max((a - b).abs().max().item()
                                        for a, b in zip(outs["this"], outs["other"])),
                    "finite": all(bool(torch.isfinite(a).all()) for a in outs["this"])}
+            if name == "C":
+                row.update(riccati_diffs(inp, outs))
             del outs
             ms = {k: [] for k in libs}
             for k in ("other", "this", "this", "other"):
@@ -375,11 +407,35 @@ def solve_rates(other: pathlib.Path, pipeline: str, B: int) -> dict:
     return row
 
 
+# One checkout's kernel C profile and Riccati-step breakdown, run from its
+# root with its own package.
+RICCATI = """
+import json
+from mpc_quad_ros_tpu_torch.bench.probe_hybrid import riccati_breakdown, riccati_profile
+print(json.dumps({"profile": riccati_profile(), "breakdown": riccati_breakdown(65536, 40)}))
+"""
+
+
+def riccati_rates(other: pathlib.Path) -> list[dict]:
+    """Each checkout's ``riccati_profile`` and ``riccati_breakdown`` in turns
+    (other, this, this, other), one process a run."""
+    roots = {"other": pathlib.Path(other).resolve(),
+             "this": pathlib.Path(__file__).resolve().parents[2]}
+    rows = []
+    for k in ("other", "this", "this", "other"):
+        out = subprocess.run([sys.executable, "-c", RICCATI], cwd=roots[k], capture_output=True,
+                             text=True, check=True)
+        rows.append({"riccati_of": k, **json.loads(out.stdout.strip().splitlines()[-1])})
+    return rows
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=pathlib.Path, required=True)
     ap.add_argument("--B", type=int, default=65536)
     ap.add_argument("--solves", default="", help="pipelines to run end to end, comma-separated")
+    ap.add_argument("--riccati", action="store_true",
+                    help="each checkout's kernel C profile and Riccati-step breakdown")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_build: needs a CUDA device")
@@ -388,6 +444,9 @@ def main(argv=None) -> None:
         print(json.dumps(row), flush=True)
     for pipeline in filter(None, args.solves.split(",")):
         print(json.dumps(solve_rates(args.other, pipeline, args.B)), flush=True)
+    if args.riccati:
+        for row in riccati_rates(args.other):
+            print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

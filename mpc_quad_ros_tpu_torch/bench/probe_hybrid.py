@@ -282,9 +282,9 @@ def _riccati_inputs(B: int, N: int, device) -> tuple:
 def riccati_profile(Ns=(10, 20, 40), B: int = 1024, iters_grid=(2, 6, 12), device="cuda",
                     peak: dict | None = None, reps: int = 20) -> dict:
     """t(iters) line fit of kernel C alone at each horizon, on the profile's
-    first-step inputs: the slope is one IPM iteration (one backward sweep,
-    the forward pass and the rollout), the intercept the kernel's own
-    set-up and final rollout.  (The JAX profile fits the whole
+    first-step inputs: the slope is one IPM iteration (one backward sweep
+    and the forward pass), the intercept the kernel's own set-up and its
+    two rollouts.  (The JAX profile fits the whole
     ``solve_batch``; in the port the line search's host time, tens of ms at
     B=1024, varies by more than the slope.)  The utilisation divides each
     iteration's operations (the JAX count and the port's
@@ -301,7 +301,7 @@ def riccati_profile(Ns=(10, 20, 40), B: int = 1024, iters_grid=(2, 6, 12), devic
                                     reps, dev) for it in iters_grid}
         slope, intercept = line_fit(times)
         jax_fl = executed_riccati_flops(N=N)["per_iter"]
-        port_fl = bounds.riccati_work(1, N, 1)["flops"]
+        port_fl = bounds.riccati_work(1, N, 1)["flops"] - bounds.riccati_work(1, N, 0)["flops"]
         util = lambda fl: fl * B / slope / rate if slope > 0 else None
         out[str(N)] = {"per_iters_seconds": {str(k): v for k, v in times.items()},
                        "sweep_slope_s": slope, "intercept_s": intercept,

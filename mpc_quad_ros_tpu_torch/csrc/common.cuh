@@ -89,6 +89,12 @@ struct TriWalk {
   }
 };
 
+// Where src sits in its 16-byte-aligned group of four elements (0-3): the
+// elements copy_async_quads places before src[0].
+template <typename T> MPCQ_HD int quad_lag(const T* src) {
+  return int((reinterpret_cast<uintptr_t>(src) / sizeof(T)) & 3);
+}
+
 // Four consecutive elements in device memory: on the card one 16-byte access
 // (the address 16-byte aligned; loads through the read-only path), on the
 // host four.
@@ -125,6 +131,11 @@ template <typename T> __device__ __forceinline__ void cp_async4(T* dst, const T*
   const unsigned d = unsigned(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
+// One 16-byte copy (both addresses 16-byte aligned), past L1.
+template <typename T> __device__ __forceinline__ void cp_async16(T* dst, const T* src) {
+  const unsigned d = unsigned(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -136,6 +147,14 @@ template <int Pending> __device__ __forceinline__ void cp_async_wait() {
 struct WarpTeam {
   int lane;
   static constexpr int size = 32;
+  // The lane index read again from the hardware: a value the compiler
+  // cannot hoist, for loops whose per-lane addresses it should not keep in
+  // registers across an enclosing loop.
+  __device__ __forceinline__ int lane_again() const {
+    unsigned l;
+    asm volatile("mov.u32 %0, %%laneid;" : "=r"(l));
+    return int(l);
+  }
   __device__ __forceinline__ void sync() const { __syncwarp(); }
   template <typename T> __device__ __forceinline__ T sum(T v) const {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -165,6 +184,18 @@ struct WarpTeam {
   template <typename T>
   __device__ __forceinline__ void copy_async_part(T* dst, const T* src, int n) const {
     for (int e = lane; e < n; e += size) cp_async4(dst + e, src + e);
+  }
+  // The same for N 4-byte elements at any 4-byte-aligned src, into the
+  // open group as 16-byte copies of the aligned quads that hold them: src[e]
+  // lands at dst[lag + e], lag = quad_lag(src) (dst 16-byte aligned).
+  template <int N, typename T>
+  __device__ __forceinline__ void copy_async_quads(T* dst, const T* src, int lag) const {
+    const int quads = (lag + N + 3) / 4;
+#pragma unroll
+    for (int r = 0; r < ((N + 6) / 4 + size - 1) / size; ++r) {
+      const int q = lane + r * size;
+      if (q < quads) cp_async16(dst + 4 * q, src - lag + 4 * q);
+    }
   }
   __device__ __forceinline__ void commit_async() const { cp_async_commit(); }
   // Waits until at most `Pending` of this lane's latest commit groups are in
@@ -246,6 +277,7 @@ template <typename K> int resident_blocks(K kernel, size_t smem, int threads = 3
 struct SerialTeam {
   int lane = 0;
   static constexpr int size = 1;
+  MPCQ_HD int lane_again() const { return lane; }
   MPCQ_HD void sync() const {}
   template <typename T> MPCQ_HD T sum(T v) const { return v; }
   template <typename T> MPCQ_HD T min(T v) const { return v; }
@@ -256,6 +288,9 @@ struct SerialTeam {
   }
   template <typename T> MPCQ_HD void copy_async_part(T* dst, const T* src, int n) const {
     for (int e = 0; e < n; ++e) dst[e] = src[e];
+  }
+  template <int N, typename T> MPCQ_HD void copy_async_quads(T* dst, const T* src, int lag) const {
+    copy_async_part(dst + lag, src, N);
   }
   template <typename T> MPCQ_HD void copy_elem(T* dst, const T* src) const { *dst = *src; }
   MPCQ_HD void commit_async() const {}
@@ -297,6 +332,7 @@ template <int Lanes = 32> struct ThreadTeam {
   ThreadShared<Lanes>* sh;
   mutable int bank = 0;
   static constexpr int size = Lanes;
+  int lane_again() const { return lane; }
   void sync() const { sh->bar.arrive_and_wait(); }
   const double* exchange(double v) const {
     double* s = sh->slots[bank];
@@ -329,6 +365,10 @@ template <int Lanes = 32> struct ThreadTeam {
   }
   template <typename T> void copy_async_part(T* dst, const T* src, int n) const {
     for (int e = lane; e < n; e += size) dst[e] = src[e];
+  }
+  // The card's quads, element by element, into the same places.
+  template <int N, typename T> void copy_async_quads(T* dst, const T* src, int lag) const {
+    copy_async_part(dst + lag, src, N);
   }
   template <typename T> void copy_elem(T* dst, const T* src) const { *dst = *src; }
   void commit_async() const {}

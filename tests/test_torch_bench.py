@@ -1,16 +1,21 @@
 """The port's measurement harness (``mpc_quad_ros_tpu_torch/bench/``) on the
 CPU: its copies of the JAX package's operation counts equal the originals,
 the new bounds count what the kernels do, and the timing entry points run
-end to end through the plain versions and answer under the JAX key names.
-The card's numbers come from ``chip_smoke.py``."""
+end to end through the plain versions and answer under the JAX key names,
+and ``bench/riccati_parts.py``'s emptied copies of kernel C apply to its
+source and build.  The card's numbers come from ``chip_smoke.py``."""
 
 import math
+import shutil
+import subprocess
 
 import pytest
 
 from mpc_quad_ros_tpu.bench import phases as jax_phases
 from mpc_quad_ros_tpu.bench import probe_hybrid as jax_probe
-from mpc_quad_ros_tpu_torch.bench import bounds, phases, probe_hybrid, suite
+from mpc_quad_ros_tpu_torch.bench import bounds, phases, probe_hybrid, riccati_parts, suite
+from mpc_quad_ros_tpu_torch.bench.ipm_parts import PACKAGE, variant_checkout
+from mpc_quad_ros_tpu_torch.ops.cuda import _build
 
 
 @pytest.mark.parametrize("N", [5, 10, 20, 40])
@@ -75,10 +80,26 @@ def test_riccati_profile_runs_on_cpu():
     row = out["5"]
     assert set(row["per_iters_seconds"]) == {"2", "6", "12"}
     assert math.isfinite(row["sweep_slope_s"]) and math.isfinite(row["intercept_s"])
-    assert row["port_flops_per_iter"] == bounds.riccati_work(1, 5, 1)["flops"]
+    per_iter = bounds.riccati_work(1, 5, 1)["flops"] - bounds.riccati_work(1, 5, 0)["flops"]
+    assert row["port_flops_per_iter"] == per_iter
 
 
 def test_riccati_breakdown_runs_on_cpu():
     out = probe_hybrid.riccati_breakdown(B=2, N=5, device="cpu", reps=1)
     for key in ("lin_kernel_s", "glue_s", "riccati_kernel_s", "riccati_finish_s", "step_s"):
         assert math.isfinite(out[key]) and out[key] > 0, key
+
+
+@pytest.mark.parametrize("variant", sorted(riccati_parts.VARIANTS))
+def test_riccati_parts_edits_match_the_source(variant, tmp_path):
+    """Each of ``bench/riccati_parts.py``'s emptied copies of kernel C
+    applies to this checkout's source (each edit found exactly once) and
+    the copy still builds for the host."""
+    root = variant_checkout(variant, riccati_parts.VARIANTS[variant], tmp_path,
+                            riccati_parts.SOURCE, PACKAGE)
+    src = (root / PACKAGE.name / "csrc" / riccati_parts.SOURCE).read_text()
+    assert src.count(riccati_parts.NEVER) == len(riccati_parts.VARIANTS[variant])
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not available to build the kernels' host version")
+    subprocess.run(["g++", *_build.HOST_FLAGS, "-c", str(root / PACKAGE.name / "csrc" /
+                    riccati_parts.SOURCE), "-o", str(tmp_path / "variant.o")], check=True)
