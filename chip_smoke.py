@@ -12,8 +12,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    block, registers and spills (the build log's ``-Xptxas -v``), resident
    blocks and warps per SM (the occupancy API; kernel B's warps a block and
    shared memory a scenario), and the same for kernels H and I at nz = 40
-   (blocks of up to four warps, a tile each); kernel B must keep at least
-   22 warps resident per SM at N = 10, kernel C more than 11 at N = 40,
+   (blocks of up to four warps, a tile each), and kernel E's two schedules
+   (half a warp a scenario, eight a block, at the cell's batch; a warp a
+   scenario and a block) with scenarios a block and resident an SM; kernel
+   B must keep at least 22 warps resident per SM at N = 10, kernel E more
+   than 24 scenarios with no spill at N = 10, kernel C more than 11 at N = 40,
    kernel D more than 11 at N = 10;
 3. kernel A (RK4 linearisation) against its plain PyTorch version, in f32
    and against the f64 plain version, at the main-path shapes, and NaN
@@ -26,7 +29,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    (B=1024: finite, its errors read);
 6. kernels D (condensing: H, g, M, d), E (the standalone box-QP IPM) and F
    (the whole Gauss-Newton step) at B=65536, N=10 against their f32 and f64
-   plain versions, NaN isolation; kernel J (condensing fed A and B, the
+   plain versions, NaN isolation (E also on its first 1 and 127 scenarios,
+   each of its schedules forced on the other's batches and held to the
+   same bits, and its share of its bound); kernel J (condensing fed A and B, the
    small-batch step's) at B=1 and B=127 against its plain versions, NaN
    isolation and bitwise against kernel D; then kernels B and E
    warm-started with the duals of a previous solve against the f64 plain
@@ -201,7 +206,7 @@ from mpc_quad_ros_tpu_torch import benchmark, compare, run  # noqa: E402
 from mpc_quad_ros_tpu_torch import entry as entry_mod  # noqa: E402
 from mpc_quad_ros_tpu_torch import hello_world as hello  # noqa: E402
 from mpc_quad_ros_tpu_torch import node as ros  # noqa: E402
-from mpc_quad_ros_tpu_torch.bench import (bounds, gp1_workflow, headline,  # noqa: E402
+from mpc_quad_ros_tpu_torch.bench import (bounds, compare_build, gp1_workflow, headline,  # noqa: E402
                                            parity, per_scenario, phases, probe_hybrid, suite)
 from mpc_quad_ros_tpu_torch.bench.closed_loop import (closed_loop, hetero_closed_loop,  # noqa: E402
                                                       setup, skip_closed_loop,
@@ -332,6 +337,12 @@ RICCATI_WARPS_BEFORE = 11
 # the registers fitted to 5 of them reach 20; this is that less one block
 # (the PR 6 design's 16), with no spill.
 LIN_WARPS_MIN = 16
+# Kernel E's small batches (the small-batch step's shapes), on the first
+# scenarios of the cell's QPs.
+E_SMALL_B = (1, 127)
+# Kernel E's resident scenarios per SM at N = 10 must pass the 24 that one
+# warp a scenario and a block allowed (8,440 B a block, 78 registers).
+E_SCENARIOS_BEFORE = 24
 # Kernel D's resident warps per SM at N = 10 must pass the ~11 that J staged
 # whole and H as a full nz x (nz + 1) matrix allowed (19,824 B a block).
 CONDENSE_WARPS_BEFORE = 11
@@ -525,7 +536,11 @@ def phase_residency(regs: dict) -> None:
     registers and spills of the instantiation that runs there (R register
     slots a lane, nz <= 32 R), resident blocks and warps per SM (kernel B's
     blocks ``mpcq_sqp_block_warps`` warps, one scenario a warp, with the
-    shared memory a scenario; E's and F's one warp); kernel A
+    shared memory a scenario; F's one warp); kernel E's schedule at the
+    cell's batch (at N = 10 eight scenarios a block, half a warp each, which
+    must keep more than E_SCENARIOS_BEFORE resident an SM with no spill; one
+    warp a scenario and a block past it) and its one-warp schedule at N =
+    10, with scenarios a block and resident an SM; kernel A
     (blocks of 128 threads) at N = 10, kernel C (one warp a block) at N = 10
     and 40; kernels D (one warp a block) and J (one block of
     ``mpcq_condense_ab_threads()`` a scenario) at N = 10 and 40."""
@@ -559,8 +574,6 @@ def phase_residency(regs: dict) -> None:
         for name, key, smem, blocks, warps in (
                 ("sqp_fused_kernel", f"sqp_fused<{slots}>", lib.mpcq_sqp_ws_bytes(N),
                  lib.mpcq_sqp_occupancy(0, N), lib.mpcq_sqp_block_warps(N)),
-                ("qp_kernel", f"box_qp<{slots}>", lib.mpcq_box_qp_ws_bytes(nz),
-                 lib.mpcq_box_qp_occupancy(nz), 1),
                 ("sqp_step_kernel", f"sqp_step<{slots}>", lib.mpcq_sqp_step_ws_bytes(N),
                  lib.mpcq_sqp_occupancy(1, N), 1)):
             row = {"kernel": name, "instantiation": key, "N": N, "nz": nz, "smem_bytes": smem,
@@ -570,6 +583,25 @@ def phase_residency(regs: dict) -> None:
             rows[(name, N)] = row
             emit("residency", **row)
             check(blocks > 0, f"residency: {name} at N={N} does not launch: {row}")
+    for N, lanes in ((10, lib.mpcq_box_qp_lanes(SOLVE_B, 40)), (10, 32), (N_R3, 0), (N_LONG, 0)):
+        nz = 4 * N
+        lanes = lanes or lib.mpcq_box_qp_lanes(SOLVE_B, nz)
+        per_block, blocks = lib.mpcq_box_qp_block_scenarios(lanes, nz), lib.mpcq_box_qp_resident(lanes, nz)
+        slots = -(-nz // lanes)
+        key = next(k for k in regs if k.startswith(f"box_qp<{slots},{lanes},"))
+        row = {"kernel": "qp_kernel", "instantiation": key, "N": N, "nz": nz,
+               "lanes_per_scenario": lanes, "smem_bytes": lib.mpcq_box_qp_block_bytes(lanes, nz),
+               "scenarios_per_block": per_block, "warps_per_block": per_block * lanes // 32,
+               **regs[key], "resident_blocks_per_sm": blocks,
+               "resident_scenarios_per_sm": blocks * per_block,
+               "resident_warps_per_sm": blocks * per_block * lanes // 32}
+        rows[("qp_kernel", N, lanes)] = row
+        emit("residency", **row)
+        check(blocks > 0, f"residency: kernel E at N={N} does not launch: {row}")
+    e10 = rows[("qp_kernel", 10, lib.mpcq_box_qp_lanes(SOLVE_B, 40))]
+    check(e10["resident_scenarios_per_sm"] > E_SCENARIOS_BEFORE and e10["spill_stores_bytes"] == 0,
+          f"residency: kernel E keeps {e10['resident_scenarios_per_sm']} scenarios per SM at "
+          f"N=10, not more than {E_SCENARIOS_BEFORE}, or spills: {e10}")
     b10 = rows[("sqp_fused_kernel", 10)]["resident_warps_per_sm"]
     check(b10 >= RESIDENT_WARPS_MIN,
           f"residency: kernel B keeps {b10} warps per SM at N=10, fewer than {RESIDENT_WARPS_MIN}")
@@ -880,7 +912,11 @@ def phase_kernel_j(device) -> dict:
 
 def phase_kernel_e(device, warm_start: bool = False) -> dict:
     """The standalone IPM on kernel D's QPs, cold or warm-started from the
-    duals of the previous solve, against the f32 and f64 plain IPMs."""
+    duals of the previous solve, against the f32 and f64 plain IPMs: at
+    B=65536 (the schedule of 16 lanes a scenario, eight a block) and on the
+    first 1 and 127 scenarios (the small-batch step's: a warp a scenario),
+    each schedule also run on the other's batches and held to the same bits;
+    NaN isolation (scenario 7: its block-mates 0-6 too)."""
     solver, carry, x0, y_ref, aug = (regulation_inputs(device) if warm_start
                                      else kernel_inputs(SOLVE_B, device))
     cfg = solver.cfg
@@ -888,7 +924,16 @@ def phase_kernel_e(device, warm_start: bool = False) -> dict:
     H, g, _, _ = condense_kernel.condense_cost_from_J(*args[:4], *cfg.weight_tuples())
     box = (H, g + args[4], args[5], args[6])
     d32 = (carry.zl, carry.zu) if warm_start else (None, None)
+    lib, nz = _build.load_library(), H.shape[-1]
+    lanes = {B: lib.mpcq_box_qp_lanes(B, nz) for B in E_SMALL_B + (SOLVE_B,)}
+    check(lanes == {1: 32, 127: 32, SOLVE_B: 16}, f"kernel E's schedules by batch: {lanes}")
     z, zl, zu = qp_kernel.solve_box_qp_pdip_batch(*box, cfg.qp_iters, *d32)
+    same = lambda a, b: all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                            for x, y in zip(a, b))
+    # a schedule taken whatever the batch: the launcher's C entry, uncounted
+    forced = lambda sub, dsub, lanes: compare_build.run_e(
+        lib, {"box": sub, "iters": cfg.qp_iters, "lanes": lanes}, dsub)
+    bitwise = {"B65536_lanes32": same((z, zl, zu), forced(box, d32, 32))}
     box64 = [a.double() for a in box]
     d64 = [None if d is None else d.double() for d in d32]
     z_d, _, _ = qp_kernel.ipm_box_solve(*box64, cfg.qp_iters, *d64)
@@ -896,6 +941,20 @@ def phase_kernel_e(device, warm_start: bool = False) -> dict:
     st = qp_stats(z, qp_kkt_residual(*box, z), z_d, qp_kkt_residual(*box64, z_d))
     st["z_plain_vs_f64"] = (z_p.double() - z_d).abs().max().item()
     del box64, z_d, z_p
+    small = {}
+    for B in E_SMALL_B:
+        sub = [a[:B].contiguous() for a in box]
+        dsub = [None if d is None else d[:B].contiguous() for d in d32]
+        out = qp_kernel.solve_box_qp_pdip_batch(*sub, cfg.qp_iters, *dsub)
+        bitwise[f"B{B}_lanes16"] = same(out, forced(sub, dsub, 16))
+        bitwise[f"B{B}_vs_B65536"] = same(out, (z[:B], zl[:B], zu[:B]))
+        sub64 = [a.double() for a in sub]
+        z_d, _, _ = qp_kernel.ipm_box_solve(*sub64, cfg.qp_iters,
+                                            *[None if d is None else d.double() for d in dsub])
+        small[B] = qp_stats(out[0], qp_kkt_residual(*sub, out[0]), z_d,
+                            qp_kkt_residual(*sub64, z_d))
+        z_p, _, _ = qp_kernel.ipm_box_solve(*sub, cfg.qp_iters, *dsub)
+        small[B]["z_vs_plain_f32"] = (out[0] - z_p).abs().max().item()
     bad = 7
     H_bad = H.clone()
     H_bad[bad, 5, 6] = float("nan")
@@ -904,17 +963,22 @@ def phase_kernel_e(device, warm_start: bool = False) -> dict:
     del H_bad
     ms = timed_ms(lambda: qp_kernel.solve_box_qp_pdip_batch(*box, cfg.qp_iters, *d32), reps=5)
     plain_ms = timed_ms(lambda: qp_kernel.ipm_box_solve(*box, cfg.qp_iters, *d32), reps=2)
-    nz = H.shape[-1]
     work = bounds.box_qp_work(SOLVE_B, nz, cfg.qp_iters, warm=warm_start)
     name = "kernel_e_warm" if warm_start else "kernel_e"
     emit(name, B=SOLVE_B, **st, nan_isolated=nan_isolated, ms=ms, plain_ms=plain_ms,
-         smem_bytes=_build.load_library().mpcq_box_qp_ws_bytes(nz), **work,
+         bound_share=work["bound_ms"] / ms, lanes_by_batch=lanes, bitwise_schedules=bitwise,
+         **{f"B{B}_{k}": v for B, row in small.items() for k, v in row.items()},
+         smem_bytes=lib.mpcq_box_qp_block_bytes(lanes[SOLVE_B], nz),
+         scenarios_per_block=lib.mpcq_box_qp_block_scenarios(lanes[SOLVE_B], nz), **work,
          tol_z=QP_Z_TOL, tol_kkt=QP_KKT_TOL)
     check(torch.isfinite(z).all(), f"{name}: non-finite output")
     check(torch.isfinite(zl).all() and bool((zl > 0).all()) and bool((zu > 0).all()),
           f"{name}: duals not finite and positive")
     check_qp(name, st)
+    for B, row in small.items():
+        check_qp(f"{name} at B={B}", row)
     check(st["z_plain_vs_f64"] < QP_Z_TOL, f"{name} plain z: {st}")
+    check(all(bitwise.values()), f"{name}: the schedules' bits differ: {bitwise}")
     check(nan_isolated, f"{name}: a NaN scenario changed another scenario's outputs")
     return {"max_abs_err": st["z_vs_f64"], "ms": ms, "plain_ms": plain_ms, **work}
 

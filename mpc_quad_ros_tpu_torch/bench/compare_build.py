@@ -15,9 +15,13 @@ kernel F on the trajectory; B, E and F cold and warm-started from the first
 solve's duals; kernel J on the A and B blocks of the first 1 and 127
 scenarios' J), kernel A again at the horizons, batches and basis sizes of
 ``LIN_STEPS`` (each after one solve of its own), kernel B again on the same
-cell's step at the horizons and batches of ``B_STEPS``, cold and warm, and
-kernel C on kernel A's J of the same cell's step at the horizons and
-batches of ``RICCATI_STEPS``.
+cell's step at the horizons and batches of ``B_STEPS``, cold and warm,
+kernel E again at the horizons and batches of ``E_STEPS`` (the first
+scenarios of the N=10 step, or a step of its own), cold and warm, and at
+the shapes of ``E_SCHEDULES`` with this checkout's schedule of 16 or 32
+lanes a scenario taken whatever the batch (``mpcq_box_qp_sched``, where the
+library has it), and kernel C on kernel A's J of the same cell's step at
+the horizons and batches of ``RICCATI_STEPS``.
 Kernel C's entry takes a device scratch where the library has
 ``mpcq_riccati_scratch_bytes`` (its other arguments are the same).
 Kernels G, H and I (``mpcq_fma``, ``mpcq_mirror``, ``mpcq_elem``) run at the
@@ -101,6 +105,13 @@ def ab_inputs(step: dict, B: int) -> dict:
     J, *tail = (a[:B].contiguous() for a in step["args"][:4])
     return {"args": [*(a.contiguous() for a in split_AB(J)), *tail],
             "weights": step["weights"], "N": step["N"]}
+
+
+def first_scenarios(step: dict, b: int) -> dict:
+    """Kernel E's QPs and warm duals of the first b scenarios of a step."""
+    return dict(step, box=tuple(a[:b].contiguous() for a in step["box"]),
+                duals=tuple(d[:b].contiguous() for d in step["duals"]),
+                args=[a[:b].contiguous() for a in step["args"][:1]])
 
 
 def riccati_step_inputs(B: int, device, N: int = 40) -> dict:
@@ -201,8 +212,12 @@ def run_e(lib, inp, duals):
     H, g, lb, ub = inp["box"]
     B, nz = g.shape
     out = [torch.empty((B, nz), device=g.device) for _ in range(3)]
-    rc = lib.mpcq_box_qp(*_ptrs((H, g, lb, ub)), *_ptrs(duals), *_ptrs(out), B, nz, inp["iters"],
-                         torch.cuda.current_stream().cuda_stream)
+    args = [*_ptrs((H, g, lb, ub)), *_ptrs(duals), *_ptrs(out), B, nz, inp["iters"]]
+    stream = torch.cuda.current_stream().cuda_stream
+    if inp.get("lanes") and hasattr(lib, "mpcq_box_qp_sched"):
+        rc = lib.mpcq_box_qp_sched(*args, inp["lanes"], stream)
+    else:
+        rc = lib.mpcq_box_qp(*args, stream)
     _build.check_status("compare_build kernel E", rc)
     return out
 
@@ -255,6 +270,17 @@ def fma_inputs(shape, resident: bool, device) -> dict:
 # fill the card 31 times over at a sixteenth of the cell's memory.
 B_STEPS = ((10, 128), (17, 65536), (17, 128), (20, 65536), (20, 128), (40, 4096))
 
+# Kernel E's QPs beside the N=10 step at B, as (N, scenarios): the
+# small-batch step's (1 and 127, the first scenarios of the N=10 step), a
+# quarter of the cell's batch, the other horizons of the condensed pipelines
+# (nz = 20, 68) at the cell's batch and N=40 (nz = 160) at 8192 scenarios
+# (its condensing maps at 65536 would take 22 GB).
+E_STEPS = ((10, 1), (10, 127), (10, 16384), (5, 65536), (17, 65536), (40, 8192))
+# Kernel E's inputs run again with one schedule taken whatever the batch, as
+# (inputs, lanes a scenario): each schedule on the other's batches at N=10.
+E_SCHEDULES = (("step", 32), ("e10x16384", 32), ("e10x16384", 16), ("e10x1", 16),
+               ("e10x127", 16))
+
 # Kernel C's steps, as (N, scenarios): the Riccati slice's horizon and two
 # on either side of it at the cell's batch, and N=40 at a batch that leaves
 # the card's SMs a few blocks each.
@@ -279,7 +305,10 @@ KERNELS = (("A", run_a, False, "step"),
            *(("B", run_b, True, f"step{n}x{b}") for n, b in B_STEPS),
            *(("C", run_c, False, f"riccati{n}x{b}") for n, b in RICCATI_STEPS),
            ("D", run_d, False, "step"),
-           ("E", run_e, True, "step"), ("F", run_f, True, "step"),
+           ("E", run_e, True, "step"),
+           *(("E", run_e, True, f"e{n}x{b}") for n, b in E_STEPS),
+           *(("E", run_e, True, f"{key}@{lanes}") for key, lanes in E_SCHEDULES),
+           ("F", run_f, True, "step"),
            ("J", run_j, False, "ab1"), ("J", run_j, False, "ab127"),
            ("G", run_g, False, "fma_registers"), ("G", run_g, False, "fma_smem"),
            ("H", _run_probe("mpcq_mirror"), False, "probe4"),
@@ -299,7 +328,15 @@ def make_inputs(key: str, B: int, inputs: dict, device) -> dict:
     """The inputs named `key`, made on first use (the N=10 step's at B)."""
     if key in inputs:
         return inputs[key]
-    if key == "step":
+    if "@" in key:
+        base, lanes = key.split("@")
+        inp = dict(make_inputs(base, B, inputs, device), lanes=int(lanes))
+    elif key.startswith("e10x"):
+        inp = first_scenarios(make_inputs("step", B, inputs, device), int(key[len("e10x"):]))
+    elif key.startswith("e"):
+        n, b = map(int, key[1:].split("x"))
+        inp = step_inputs(b, device, N=n)
+    elif key == "step":
         inp = step_inputs(B, device)
     elif key.startswith("lin"):
         n, b, nb = map(int, key[len("lin"):].replace("nb", "x").split("x"))
@@ -355,7 +392,7 @@ def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
             torch.cuda.synchronize()
             row = {"kernel": name, "start": start if warm else "-",
                    "B": inp["args"][0].shape[0], "N": inp["N"],
-                   **{k: inp[k] for k in ("nb", "reps", "chains", "steps", "resident")
+                   **{k: inp[k] for k in ("nb", "reps", "chains", "steps", "resident", "lanes")
                       if k in inp},
                    "bitwise": all(same_bits(a, b) for a, b in zip(outs["this"], outs["other"])),
                    "max_abs_diff": max((a - b).abs().max().item()

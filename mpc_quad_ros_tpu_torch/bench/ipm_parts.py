@@ -9,16 +9,18 @@
    (kernel A's wrapper for A), so at small B a time may include the host's
    launch.
 2. The IPM with one part taken out: copies of this package under
-   ``build/ipm_parts/<variant>/`` whose ``csrc/ipm_box.cuh`` has one loop
-   emptied (the Cholesky's trailing updates, its panel steps' row updates,
-   the two substitutions, H z, the fill of the factor's lower triangle from
-   H), or the Cholesky's panel width changed, each built by its own
-   ``_build.py``.
-   Kernels B and E at --B, 12 iterations, against the unchanged source in
-   the same process.  An emptied variant computes nothing useful: only its
+   ``build/ipm_parts/<variant>/`` with one loop emptied, each built by its
+   own ``_build.py``: kernel B's in ``csrc/ipm_box.cuh`` (the Cholesky's
+   trailing updates, its panel steps' row updates, the two substitutions,
+   H z, the fill of the factor's lower triangle from H), or its Cholesky's
+   panel width changed; kernel E's in ``csrc/qp_kernel.cu`` (the trailing
+   updates, the panels' rows past the panel, the two substitutions, H z past
+   its first quad, the fill).
+   Kernel B or E at --B, 12 iterations, against the unchanged source in the
+   same process.  An emptied variant computes nothing useful: only its
    time is read, and a part's share is the full kernel's time less its
    variant's.  Each edit must match the source exactly once, so a change of
-   ``ipm_box.cuh`` stops the script instead of timing something else.
+   the source stops the script instead of timing something else.
 
 One JSON line per shape and per variant.
 """
@@ -53,6 +55,18 @@ VARIANTS = {
                  "for (int e = ln + total; e < total; e += NL) {\n        const int code = tri[e], i")],
     "chol_panel_2": [("constexpr int CHOL_PANEL = 4;", "constexpr int CHOL_PANEL = 2;")],
     "chol_panel_8": [("constexpr int CHOL_PANEL = 4;", "constexpr int CHOL_PANEL = 8;")],
+}
+# kernel E's variant -> edits of csrc/qp_kernel.cu
+E_VARIANTS = {
+    "e_no_trailing_update": [("for (int e = e0 + lane; e < e1; e += nl) {",
+                              "for (int e = e1 + lane; e < e1; e += nl) {")],
+    "e_no_panel_rows": [("for (int i = pe + ln; i < nz; i += NL) {",
+                         "for (int i = nz + ln; i < nz; i += NL) {")],
+    "e_no_substitutions": [("for (int jq = 0; jq < NL; jq += 4) {", "for (int jq = NL; jq < NL; jq += 4) {"),
+                           ("for (int jl = NL - 1; jl >= 0; --jl) {", "for (int jl = -1; jl >= 0; --jl) {")],
+    "e_no_hz": [("for (int q = 1; q < Q; ++q) hz_quad", "for (int q = Q; q < Q; ++q) hz_quad")],
+    "e_no_fill": [("for (int e = ln, n = box_qp_strips(nz, 0);",
+                   "for (int e = ln + nz * nz, n = box_qp_strips(nz, 0);")],
 }
 
 
@@ -104,13 +118,16 @@ def main(argv=None) -> None:
                "F_ms": ms(lambda: run_f(lib, s, COLD), dev)}
         print(json.dumps(row), flush=True)
     root = _build.BUILD_ROOT.parent / "ipm_parts"
-    libs = {"full": lib}
-    libs.update({name: other_library(variant_checkout(name, edits, root))
-                 for name, edits in VARIANTS.items()})
-    for name, vlib in libs.items():
-        print(json.dumps({"variant": name, "B": args.B, "iters": inp["iters"],
-                          "B_ms": ms(lambda: run_b(vlib, inp, COLD), dev, 3),
-                          "E_ms": ms(lambda: run_e(vlib, inp, COLD), dev, 3)}), flush=True)
+    print(json.dumps({"variant": "full", "B": args.B, "iters": inp["iters"],
+                      "B_ms": ms(lambda: run_b(lib, inp, COLD), dev, 3),
+                      "E_ms": ms(lambda: run_e(lib, inp, COLD), dev, 3)}), flush=True)
+    for source, variants, kernel, run in (("ipm_box.cuh", VARIANTS, "B", run_b),
+                                          ("qp_kernel.cu", E_VARIANTS, "E", run_e)):
+        for name, edits in variants.items():
+            vlib = other_library(variant_checkout(name, edits, root, source))
+            print(json.dumps({"variant": name, "B": args.B, "iters": inp["iters"],
+                              f"{kernel}_ms": ms(lambda: run(vlib, inp, COLD), dev, 3),
+                              "full_ms": ms(lambda: run(lib, inp, COLD), dev, 3)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -29,6 +29,13 @@
 #else
 #define MPCQ_UNROLL
 #endif
+// A loop kept rolled on the card, so that the compiler does not hold the
+// loads of several iterations in registers at once.
+#if defined(__CUDA_ARCH__)
+#define MPCQ_NO_UNROLL _Pragma("unroll 1")
+#else
+#define MPCQ_NO_UNROLL
+#endif
 
 namespace mpcq {
 
@@ -108,6 +115,16 @@ MPCQ_HD Quad<float> load4(const float* src) {
 #endif
 }
 MPCQ_HD Quad<double> load4(const double* src) { return {{src[0], src[1], src[2], src[3]}}; }
+// The same from shared memory (16-byte aligned on the card).
+MPCQ_HD Quad<float> load4s(const float* src) {
+#if defined(__CUDA_ARCH__)
+  const float4 q = *reinterpret_cast<const float4*>(src);
+  return {{q.x, q.y, q.z, q.w}};
+#else
+  return {{src[0], src[1], src[2], src[3]}};
+#endif
+}
+MPCQ_HD Quad<double> load4s(const double* src) { return {{src[0], src[1], src[2], src[3]}}; }
 MPCQ_HD void store4(float* dst, float a, float b, float c, float d) {
 #if defined(__CUDA_ARCH__)
   *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
@@ -197,9 +214,54 @@ struct WarpTeam {
       if (q < quads) cp_async16(dst + 4 * q, src - lag + 4 * q);
     }
   }
+  // Starts one 4-byte cp.async into the lane's open group (kernel E's
+  // staging of H, which scatters).
+  template <typename T> __device__ __forceinline__ void copy_elem(T* dst, const T* src) const {
+    cp_async4(dst, src);
+  }
   __device__ __forceinline__ void commit_async() const { cp_async_commit(); }
   // Waits until at most `Pending` of this lane's latest commit groups are in
   // flight, then syncs, so every lane's finished copies are visible.
+  template <int Pending> __device__ __forceinline__ void wait_async() const {
+    cp_async_wait<Pending>();
+    __syncwarp();
+  }
+};
+
+// Half a warp works on one scenario, the other half on another (kernel E's
+// paired blocks): the two halves run the same instructions on their own
+// data.  A lane stands for two of a warp team's lanes, l and l + 16, so a
+// reduction keeps the warp's order: sum2(a, b) takes lane l's and lane
+// l + 16's partials, adds them (the warp's first butterfly step, at offset
+// 16), then reduces at offsets 8, 4, 2, 1 inside the half.  sync() is the
+// whole warp's: both halves reach every sync.
+struct HalfWarpTeam {
+  int lane;
+  static constexpr int size = 16;
+  // The lane read again from the hardware (see WarpTeam::lane_again).
+  __device__ __forceinline__ int lane_again() const {
+    unsigned l;
+    asm volatile("mov.u32 %0, %%laneid;" : "=r"(l));
+    return int(l) & 15;
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+  template <typename T> __device__ __forceinline__ T sum2(T a, T b) const {
+    T v = a + b;
+    for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  }
+  template <typename T> __device__ __forceinline__ T min(T v) const {
+    for (int o = 8; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+  }
+  // lane src's v of this half, on every lane of the half
+  template <typename T> __device__ __forceinline__ T bcast(T v, int src) const {
+    return __shfl_sync(0xffffffffu, v, src, 16);
+  }
+  template <typename T> __device__ __forceinline__ void copy_elem(T* dst, const T* src) const {
+    cp_async4(dst, src);
+  }
+  __device__ __forceinline__ void commit_async() const { cp_async_commit(); }
   template <int Pending> __device__ __forceinline__ void wait_async() const {
     cp_async_wait<Pending>();
     __syncwarp();
@@ -360,6 +422,18 @@ template <int Lanes = 32> struct ThreadTeam {
     return acc;
   }
   template <typename T> T bcast(T v, int src) const { return T(exchange(double(v))[src]); }
+  // The sum over 2 Lanes virtual lanes, lane l holding l's partial a and
+  // (l + Lanes)'s partial b, in the order of the same sum over a team of
+  // 2 Lanes threads (the card's HalfWarpTeam::sum2 for Lanes = 16).  Each
+  // bank is read before the next exchange, as the banks' alternation needs.
+  template <typename T> T sum2(T a, T b) const {
+    const double* s = exchange(double(a));
+    T acc = T(s[0]);
+    for (int l = 1; l < size; ++l) acc = acc + T(s[l]);
+    s = exchange(double(b));
+    for (int l = 0; l < size; ++l) acc = acc + T(s[l]);
+    return acc;
+  }
   template <typename T> void copy_async(T* dst, const T* src, int n) const {
     copy_async_part(dst, src, n);
   }

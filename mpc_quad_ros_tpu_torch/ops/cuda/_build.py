@@ -43,6 +43,9 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 WS_ENTRIES = ("mpcq_lin_ws_bytes", "mpcq_sqp_ws_bytes", "mpcq_sqp_step_ws_bytes",
               "mpcq_condense_ws_bytes", "mpcq_box_qp_ws_bytes", "mpcq_riccati_ws_bytes",
               "mpcq_riccati_scratch_bytes", "mpcq_transpose_ws_bytes")
+# kernel E's schedule by batch and nz (both builds)
+BOX_QP_SCHEDULE = {"mpcq_box_qp_lanes": [_I64, _I], "mpcq_box_qp_block_scenarios": [_I, _I],
+                   "mpcq_box_qp_block_bytes": [_I, _I]}
 DEVICE_ENTRIES = {
     "mpcq_lin": [_P] * 6 + [_I, _P, _P, _I64, _I, _P, _P],
     "mpcq_sqp_fused": [_P] * 15 + [_I64, _I, _I, _P],
@@ -50,13 +53,15 @@ DEVICE_ENTRIES = {
     "mpcq_condense": [_P] * 9 + [_I64, _I, _P],
     "mpcq_condense_ab": [_P] * 10 + [_I64, _I, _P],
     "mpcq_box_qp": [_P] * 9 + [_I64, _I, _I, _P],
+    "mpcq_box_qp_sched": [_P] * 9 + [_I64, _I, _I, _I, _P],
     "mpcq_riccati_ipm": [_P] * 12 + [_I64, _I, _I, _P],
     "mpcq_fma": [_P, _P, _I64, _I, _I, _I, _P],
     "mpcq_mirror": [_P, _P, _I64, _I, _I, _P],
     "mpcq_elem": [_P, _P, _I64, _I, _I, _P],
     "mpcq_sqp_occupancy": [_I, _I],
     "mpcq_sqp_block_warps": [_I],
-    "mpcq_box_qp_occupancy": [_I],
+    "mpcq_box_qp_resident": [_I, _I],
+    **BOX_QP_SCHEDULE,
     "mpcq_lin_occupancy": [_I],
     "mpcq_riccati_occupancy": [_I],
     "mpcq_condense_occupancy": [_I],
@@ -82,6 +87,9 @@ HOST_ENTRIES = {
     "mpcq_condense_ab_host256_f64": [_P] * 10 + [_I64, _I],
     "mpcq_box_qp_host_f64": [_P] * 9 + [_I64, _I, _I],
     "mpcq_box_qp_host32_f64": [_P] * 9 + [_I64, _I, _I],
+    "mpcq_box_qp_host_block_f64": [_P] * 9 + [_I64, _I, _I],
+    "mpcq_box_qp_shared_ipm_host32_f64": [_P] * 9 + [_I64, _I, _I],
+    **BOX_QP_SCHEDULE,
     "mpcq_riccati_ipm_host_f64": [_P] * 11 + [_I64, _I, _I],
     "mpcq_riccati_ipm_host32_f64": [_P] * 11 + [_I64, _I, _I],
     "mpcq_fma_host_f64": [_P, _P, _I64, _I, _I, _I],
@@ -92,7 +100,7 @@ HOST_ENTRIES = {
     **{name: [_I] for name in WS_ENTRIES},
 }
 # entries that return something other than a CUDA status (int)
-RESTYPES = {name: _I64 for name in WS_ENTRIES}
+RESTYPES = {name: _I64 for name in WS_ENTRIES + ("mpcq_box_qp_block_bytes",)}
 
 _device_lib = None
 

@@ -3,17 +3,20 @@ IPM that kernels B and F also run per scenario (``csrc/ipm_box.cuh``).
 
 Replaces ``mpc_quad_ros_tpu/ops/pallas/qp_kernel.py::_qp_kernel`` (entry
 ``solve_box_qp_pdip_pallas(..., symmetrize=False)``); the CUDA source is
-``csrc/qp_kernel.cu`` (one warp per scenario, H's upper triangle staged in
-the packed matrix it shares with the factor; bounded by the IPM's latency
-per scenario, which resident warps hide — see the source's header).
+``csrc/qp_kernel.cu`` (two schedules of the same bits, which its launcher
+picks from B and nz: for large batches at nz <= 40 half a warp a scenario
+and eight scenarios a block on one table of the triangle's strips, else a
+warp a scenario and a block; bounded by the SM's instruction issue and
+shared-memory accesses once enough scenarios reside — see the source's
+header).
 ``ipm_box_solve`` is the plain version, counterpart of the Pallas core
 ``ipm_box_solve`` with its cold and warm starts.
 
 ``solve_box_qp_pdip_batch`` runs the plain version for CPU tensors and
 launches the kernel for CUDA tensors (f32, contiguous, sm_90), raising on
 anything else.  The kernel reads H's upper triangle and diagonal: H must be
-symmetric, as the condensed H is by construction.  An nz whose workspace
-passes the device's shared memory per block (nz > 214 on an H100) raises
+symmetric, as the condensed H is by construction.  An nz whose block
+passes the device's shared memory per block (nz > 229 on an H100) raises
 ``ValueError`` before the launch.
 """
 
@@ -113,7 +116,8 @@ def _launch(H, g, lb, ub, iters, zl0, zu0):
     shapes["H"] = (B, nz, nz)
     _build.check_cuda_inputs("qp_kernel", tensors, shapes)
     lib = _build.load_library()
-    check_smem("qp_kernel", lib.mpcq_box_qp_ws_bytes(nz), H.device, f"nz={nz}")
+    check_smem("qp_kernel", lib.mpcq_box_qp_block_bytes(lib.mpcq_box_qp_lanes(B, nz), nz),
+               H.device, f"nz={nz}")
     z, zl, zu = (torch.empty((B, nz), dtype=H.dtype, device=H.device) for _ in range(3))
     duals = [zl0.data_ptr(), zu0.data_ptr()] if zl0 is not None else [None, None]
     rc = lib.mpcq_box_qp(H.data_ptr(), g.data_ptr(), lb.data_ptr(), ub.data_ptr(), *duals,

@@ -2,8 +2,9 @@
 CPU: its copies of the JAX package's operation counts equal the originals,
 the new bounds count what the kernels do, and the timing entry points run
 end to end through the plain versions and answer under the JAX key names,
-and ``bench/riccati_parts.py``'s emptied copies of kernel C apply to its
-source and build.  The card's numbers come from ``chip_smoke.py``."""
+and ``bench/riccati_parts.py``'s emptied copies of kernel C and
+``bench/ipm_parts.py``'s of kernels B and E apply to their sources (E's
+also build).  The card's numbers come from ``chip_smoke.py``."""
 
 import math
 import shutil
@@ -13,7 +14,7 @@ import pytest
 
 from mpc_quad_ros_tpu.bench import phases as jax_phases
 from mpc_quad_ros_tpu.bench import probe_hybrid as jax_probe
-from mpc_quad_ros_tpu_torch.bench import bounds, phases, probe_hybrid, riccati_parts, suite
+from mpc_quad_ros_tpu_torch.bench import bounds, ipm_parts, phases, probe_hybrid, riccati_parts, suite
 from mpc_quad_ros_tpu_torch.bench.ipm_parts import PACKAGE, variant_checkout
 from mpc_quad_ros_tpu_torch.ops.cuda import _build
 
@@ -103,3 +104,21 @@ def test_riccati_parts_edits_match_the_source(variant, tmp_path):
         pytest.skip("g++ is not available to build the kernels' host version")
     subprocess.run(["g++", *_build.HOST_FLAGS, "-c", str(root / PACKAGE.name / "csrc" /
                     riccati_parts.SOURCE), "-o", str(tmp_path / "variant.o")], check=True)
+
+
+@pytest.mark.parametrize("variant", sorted(ipm_parts.VARIANTS) + sorted(ipm_parts.E_VARIANTS))
+def test_ipm_parts_edits_match_the_source(variant, tmp_path):
+    """Each of ``bench/ipm_parts.py``'s copies applies to this checkout's
+    source (``variant_checkout`` refuses an edit found other than once);
+    kernel E's emptied copies also build for the host."""
+    edits, source = ((ipm_parts.E_VARIANTS[variant], "qp_kernel.cu") if variant in ipm_parts.E_VARIANTS
+                     else (ipm_parts.VARIANTS[variant], "ipm_box.cuh"))
+    root = variant_checkout(variant, edits, tmp_path, source, PACKAGE)
+    src = (root / PACKAGE.name / "csrc" / source).read_text()
+    assert all(src.count(new) >= 1 for _, new in edits)
+    if source == "ipm_box.cuh":
+        return
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not available to build the kernels' host version")
+    subprocess.run(["g++", *_build.HOST_FLAGS, "-c", str(root / PACKAGE.name / "csrc" / source),
+                    "-o", str(tmp_path / "variant.o")], check=True)

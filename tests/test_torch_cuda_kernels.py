@@ -189,12 +189,21 @@ def test_cuda_qp_kernel_matches_f64_plain(box_qp_step, warm):
 
 
 def test_cuda_qp_kernel_refuses_past_its_ceiling():
+    """232,448 B a block holds kernel E's one-warp block up to nz = 229 (its
+    ceiling was 214 before its matrix and strip table were laid out anew):
+    it runs there and at 214, and refuses 230 and 300."""
     dev = require_cuda()
-    nz = 215             # 232,448 B a block holds kernel E's workspace up to nz = 214
-    H = torch.eye(nz, device=dev).expand(2, nz, nz).contiguous()
-    v = torch.zeros(2, nz, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        qp_kernel.solve_box_qp_pdip_batch(H, v, v - 1, v + 1, ITERS)
+    for nz in (214, 229):
+        H = torch.eye(nz, device=dev).expand(2, nz, nz).contiguous()
+        v = torch.zeros(2, nz, device=dev)
+        z, zl, zu = qp_kernel.solve_box_qp_pdip_batch(H, v, v - 1, v + 1, ITERS)
+        torch.cuda.synchronize()
+        assert torch.isfinite(z).all() and z.abs().max() < 1e-3 and (zl > 0).all()
+    for nz in (230, 300):
+        H = torch.eye(nz, device=dev).expand(2, nz, nz).contiguous()
+        v = torch.zeros(2, nz, device=dev)
+        with pytest.raises(ValueError, match="shared memory"):
+            qp_kernel.solve_box_qp_pdip_batch(H, v, v - 1, v + 1, ITERS)
 
 
 # ---------------------------------------------------------------- C

@@ -174,14 +174,18 @@ def _hetero_inputs():
 @pytest.mark.parametrize("path", ["episode", "episode_batch", "hetero"])
 def test_loops_on_cuda_match_cpu_f64(path):
     """Five ticks of each card path in f32 against the CPU's f64, within
-    1e-2.  The heterogeneous fused batch is held to the larger of 1e-2 and
-    twice the f32 plain version's own error against f64 on the CPU: its
-    12-iteration Jacobi-scaled IPM has an f32 floor on the body rates above
-    1e-2 on these inputs (kernel A's rule at the fitted GP)."""
+    1e-2.  The batched paths are held to the larger of 1e-2 and twice the
+    f32 plain version's own error against f64 on the CPU (kernel A's rule at
+    the fitted GP): the 12-iteration Jacobi-scaled IPM has an f32 floor on
+    the body rates at 1e-2 on these inputs.  ``tests/loop_floor.py`` reads
+    it for ``run_episode_batch``: the port's CPU f32 run 9.73e-3 (the 8 m/s
+    episode; 8.92e-3 in the 4 m/s one), the card 1.03e-2 (the 4 m/s one),
+    the JAX package's f32 run on the CPU 6.48e-3 (the 4 m/s one), each at
+    tick 4 on omega_x; ``hetero``'s CPU f32 floor is above 1e-2."""
     dev = require_cuda()
     inp, traj, lens = _hetero_inputs()
     runs = [("cpu", torch.float64), (dev, torch.float32)]
-    if path == "hetero":
+    if path != "episode":
         runs.append(("cpu", torch.float32))
     outs = {}
     for device, dtype in runs:
@@ -203,7 +207,7 @@ def test_loops_on_cuda_match_cpu_f64(path):
     err = lambda key: (outs[key].x_odom.double().cpu() - outs["cpu", torch.float64].x_odom
                        ).abs().max().item()
     bound = 1e-2
-    if path == "hetero":
+    if path != "episode":
         bound = max(bound, 2 * err(("cpu", torch.float32)))
     assert err((dev, torch.float32)) < bound
 

@@ -24,8 +24,24 @@ B, E and F on the CPU, float64, at every register-slot count the card uses.
   scenario (the first warp's or the second's) leaves its block-mate bitwise
   unchanged.  Only at nz = 12 and 40: past nz = 64 a block is one warp, the
   one-warp walk above.  Two scenarios, one block.
+- Kernel E keeps the bits of that IPM (``ipm_box_solve``, which B and F
+  run): its 32-thread team bitwise the shared IPM's 32-thread team on the
+  same QPs (``mpcq_box_qp_shared_ipm_host32_f64``), cold and warm, at every
+  horizon; in f64 on the host each operation rounds once as on the card, so
+  equal bits here mean the same operations in the same order.  Its paired
+  block walk (``mpcq_box_qp_host_block_f64``: eight 16-thread teams side by
+  side on one block workspace, NaN-filled, its strip table built once) at
+  nz = 12 and 40, where the card pairs scenarios: three blocks' worth of
+  scenarios (the case's four, tiled), bitwise the 32-thread team, and a NaN
+  in one scenario leaves every other one, its block-mates included, bitwise
+  unchanged.
+- Kernel E at an nz that is not a multiple of four (its last Cholesky
+  panel and the last quad of its strips partial; the condensed QPs have
+  nz = 4 N): random positive definite QPs, its three host walks against
+  the shared IPM (bitwise for the teams of 32 and 16 threads) and the plain
+  version (1e-9).
 - The shared-memory sizes of the layout: one packed matrix and one
-  condensing map a scenario."""
+  condensing map a scenario; kernel E's blocks."""
 
 import numpy as np
 import pytest
@@ -44,8 +60,12 @@ from test_torch_common import host_library, jax_params, port_params, ptr, rgp_ba
 B, ITERS, BAD = 4, 12, 2
 BLOCK_B = 2
 HORIZONS = (3, 10, 17, 40)
-# the horizons at which kernel B's block holds two warps
+# the horizons at which kernel B's block holds two warps and kernel E pairs
+# scenarios (nz <= 40)
 BLOCK_HORIZONS = (3, 10)
+# kernel E's paired block: scenarios a block, and the tiling of the case's
+# scenarios that fills one block and part of the next
+E_PAIR_TEAMS, E_TILE = 8, 3
 TEAMS = {"serial": "", "lanes32": "32"}
 STEP = ("dx0", "ex0", "gu", "lb", "ub")
 f64 = dict(dtype=torch.float64)
@@ -131,14 +151,20 @@ def _run_f(lib, team, inp, duals, X):
     return out
 
 
-def _run_e(lib, team, inp, duals, H):
-    nz = 4 * inp["N"]
-    out = _empty((B, nz), 3)
-    rc = getattr(lib, f"mpcq_box_qp_host{team}_f64")(
-        ptr(H), *map(ptr, inp["box"][1:]), *map(ptr, duals or (None, None)), *map(ptr, out), B,
-        nz, ITERS)
+def _run_e(lib, team, inp, duals, H, entry="mpcq_box_qp_host{}_f64", box=None):
+    """Kernel E's host entry (or `entry`) on H and the case's (or `box`'s)
+    g, lb, ub."""
+    b, nz = H.shape[:2]
+    out = _empty((b, nz), 3)
+    rc = getattr(lib, entry.format(team))(
+        ptr(H), *map(ptr, (box or inp["box"])[1:]), *map(ptr, duals or (None, None)),
+        *map(ptr, out), b, nz, ITERS)
     assert rc == 0
     return out
+
+
+def _same(outs, refs):
+    return all(torch.equal(a, b) for a, b in zip(outs, refs))
 
 
 def _check_step(inp, out, ref):
@@ -206,6 +232,38 @@ def test_kernel_e_host_matches_plain(case, host_lib, team, warm):
     H_bad = case["box"][0].clone()
     H_bad[BAD, 1, 3] = float("nan")          # the upper triangle, which the kernel reads
     _isolated(out, _run_e(host_lib, TEAMS[team], case, duals, H_bad))
+    if team == "lanes32":
+        # the arithmetic of the shared IPM, bit for bit
+        shared = _run_e(host_lib, "", case, duals, case["box"][0],
+                        entry="mpcq_box_qp_shared_ipm_host32_f64")
+        assert _same(out, shared)
+
+
+@pytest.mark.parametrize("bad", [1, 9], ids=["nan_block0", "nan_block1"])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("case", BLOCK_HORIZONS, indirect=True, ids=lambda N: f"N{N}")
+def test_kernel_e_block_walk(case, host_lib, warm, bad):
+    """The card's paired block of kernel E on the host: eight 16-thread
+    teams, one table a block, on 12 scenarios (a full block and part of the
+    next)."""
+    nz = 4 * case["N"]
+    assert host_lib.mpcq_box_qp_block_scenarios(16, nz) == E_PAIR_TEAMS
+    assert host_lib.mpcq_box_qp_lanes(65536, nz) == 16 and host_lib.mpcq_box_qp_lanes(127, nz) == 32
+    box = tuple(a.repeat((E_TILE,) + (1,) * (a.dim() - 1)).contiguous() for a in case["box"])
+    duals = [d.repeat(E_TILE, 1).contiguous() for d in case["duals"]] if warm else None
+    out = _run_e(host_lib, "_block", case, duals, box[0], box=box)
+    ref = qp_kernel.ipm_box_solve(*box, ITERS, *(duals or (None, None)))
+    for name, a, b in zip(("z", "zl", "zu"), out, ref):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-9, f"{name}: {err}"
+    assert _same(out, _run_e(host_lib, "32", case, duals, box[0], box=box))
+    # a NaN in scenario `bad`; every other scenario's outputs unchanged
+    H_bad = box[0].clone()
+    H_bad[bad, 1, 3] = float("nan")
+    out_bad = _run_e(host_lib, "_block", case, duals, H_bad, box=box)
+    keep = torch.arange(E_TILE * B) != bad
+    assert torch.isnan(out_bad[0][bad]).any()
+    assert all(torch.equal(a[keep], b[keep]) for a, b in zip(out_bad, out))
 
 
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
@@ -223,21 +281,55 @@ def test_kernel_f_host_matches_plain(case, host_lib, team, warm):
     _isolated(out, _run_f(host_lib, TEAMS[team], case, duals, X_bad))
 
 
+@pytest.mark.parametrize("nz", [10, 23, 37])
+def test_kernel_e_odd_nz_matches_shared_ipm(host_lib, nz):
+    rng = np.random.default_rng(nz)
+    M = rng.standard_normal((E_TILE, nz, nz))
+    H = M @ M.transpose(0, 2, 1) / nz + 0.1 * np.eye(nz)
+    box = tuple(torch.tensor(a).contiguous() for a in
+                (H, rng.standard_normal((E_TILE, nz)), -rng.uniform(0.1, 1.0, (E_TILE, nz)),
+                 rng.uniform(0.1, 1.0, (E_TILE, nz))))
+    ref = qp_kernel.ipm_box_solve(*box, ITERS)
+    shared = _run_e(host_lib, "", None, None, box[0], entry="mpcq_box_qp_shared_ipm_host32_f64",
+                    box=box)
+    for team in ("", "32", "_block"):
+        out = _run_e(host_lib, team, None, None, box[0], box=box)
+        for name, a, b in zip(("z", "zl", "zu"), out, ref):
+            err = (a - b).abs().max().item()
+            assert err <= 1e-9, f"{team} {name}: {err}"
+        if team:
+            assert _same(out, shared), team
+
+
 def test_packed_layout_sizes(host_lib):
     """One nz x (nz + 1) matrix a scenario: kernel B 8,904 B a scenario at
     N = 10 (packed matrix, g, one 13 x nz map, two d vectors; 12,752 B with
     two maps and J's stream buffer, 36,144 B with three matrices and J
-    staged), two scenarios a block there; kernel E 8,440 B at nz = 40
-    (22,400 B), the triangle table included; both fit an H100 block at
-    FUSED_N_MAX = 40."""
+    staged), two scenarios a block there; kernel E (8,440 B a scenario
+    before, the triangle table in each) a 40 x 44 matrix a scenario (s and z
+    in its last two columns) and one table of 220 strips a block: 56,768 B
+    for its paired block of eight at nz = 40, which four times fill an SM's
+    233,472 B with the 1 KB the card keeps a block; both kernels fit an H100
+    block at FUSED_N_MAX = 40."""
     limit = 232_448
     assert host_lib.mpcq_sqp_block_warps(10) == 2
     # two warps a block up to nz = 64 (R = 2 register slots a lane), one past it
     assert (host_lib.mpcq_sqp_block_warps(16), host_lib.mpcq_sqp_block_warps(17)) == (2, 1)
     assert host_lib.mpcq_sqp_ws_bytes(10) == 2 * 4 * (40 * 41 + 40 + 13 * 40 + 26) == 2 * 8_904
     assert host_lib.mpcq_sqp_step_ws_bytes(10) == 4 * (40 * 41 + 40 + 13 * 40 + 26 + 10 * (221 + 13)) == 18_264
-    assert host_lib.mpcq_box_qp_ws_bytes(40) == 4 * (40 * 41 + 2 * 40 + 780 // 2) == 8_440
-    assert host_lib.mpcq_sqp_ws_bytes(10) // 2 <= 9 * 1024 and host_lib.mpcq_box_qp_ws_bytes(40) <= 10 * 1024
+    # kernel E: ld = 44 (a multiple of 4 past nz + 2 with ld / 4 odd), the
+    # table 220 strips (columns of four, 40 + 36 + ... + 4 rows) of 16 bits
+    # in 28 quads of floats
+    table, slot = 4 * 28, 40 * 44
+    assert 2 * (40 + 36 + 32 + 28 + 24 + 20 + 16 + 12 + 8 + 4) == 440 <= 4 * table
+    assert host_lib.mpcq_box_qp_block_bytes(16, 40) == 4 * (table + 8 * slot) == 56_768
+    assert host_lib.mpcq_box_qp_block_bytes(32, 40) == 4 * (table + slot) == 7_488
+    assert host_lib.mpcq_box_qp_ws_bytes(40) == 56_768
+    assert 4 * (56_768 + 1024) <= 233_472 < 5 * (56_768 + 1024)
+    # one warp a scenario past nz = 40, and 16-lane teams refused there
+    assert host_lib.mpcq_box_qp_block_scenarios(16, 44) == 0
+    assert host_lib.mpcq_box_qp_ws_bytes(68) == host_lib.mpcq_box_qp_block_bytes(32, 68)
+    assert host_lib.mpcq_sqp_ws_bytes(10) // 2 <= 9 * 1024
     # at N = 40 one scenario a block, its map region the IPM's vectors and table
     # (2 * 160 + 12,720 // 2) and the solution (160), past the 13 x 160 map
     n = sqp.FUSED_N_MAX
@@ -245,5 +337,8 @@ def test_packed_layout_sizes(host_lib):
     assert host_lib.mpcq_sqp_ws_bytes(n) == 4 * (160 * 161 + 160 + (2 * 160 + 6_360 + 160) + 26) == 131_144
     assert host_lib.mpcq_sqp_step_ws_bytes(n) == 168_584
     assert host_lib.mpcq_sqp_step_ws_bytes(n) <= limit
-    # kernel E's own ceiling: nz = 214
-    assert host_lib.mpcq_box_qp_ws_bytes(214) <= limit < host_lib.mpcq_box_qp_ws_bytes(215)
+    # kernel E's own ceiling, nz = 214 before: nz = 229 (232 rows of ld = 236
+    # and 6,670 strips), one warp a block
+    assert host_lib.mpcq_box_qp_ws_bytes(214) <= limit
+    assert host_lib.mpcq_box_qp_ws_bytes(229) == 4 * 232 * 236 + 13_344 <= limit
+    assert host_lib.mpcq_box_qp_ws_bytes(230) > limit
