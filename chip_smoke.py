@@ -14,10 +14,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    shared memory a scenario), and the same for kernels H and I at nz = 40
    (blocks of up to four warps, a tile each), and kernel E's two schedules
    (half a warp a scenario, eight a block, at the cell's batch; a warp a
-   scenario and a block) with scenarios a block and resident an SM; kernel
-   B must keep at least 22 warps resident per SM at N = 10, kernel E more
-   than 24 scenarios with no spill at N = 10, kernel C more than 11 at N = 40,
-   kernel D more than 11 at N = 10;
+   scenario and a block) with scenarios a block and resident an SM, and
+   kernel F's the same way (with its device scratch a block); kernel B must
+   keep at least 22 warps resident per SM at N = 10, kernel E more than 24
+   scenarios with no spill at N = 10, kernel F at least 24 with no spill,
+   kernel C more than 11 at N = 40, kernel D more than 11 at N = 10;
 3. kernel A (RK4 linearisation) against its plain PyTorch version, in f32
    and against the f64 plain version, at the main-path shapes, and NaN
    isolation between scenarios;
@@ -30,8 +31,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 6. kernels D (condensing: H, g, M, d), E (the standalone box-QP IPM) and F
    (the whole Gauss-Newton step) at B=65536, N=10 against their f32 and f64
    plain versions, NaN isolation (E also on its first 1 and 127 scenarios,
-   each of its schedules forced on the other's batches and held to the
-   same bits, and its share of its bound); kernel J (condensing fed A and B, the
+   F on its first 128, each of their schedules forced on the other's
+   batches, F's half-warp teams also on 127 scenarios, a last block with a
+   team past the batch, and held to the same bits; E's and F's shares of
+   their bounds); kernel J (condensing fed A and B, the
    small-batch step's) at B=1 and B=127 against its plain versions, NaN
    isolation and bitwise against kernel D; then kernels B and E
    warm-started with the duals of a previous solve against the f64 plain
@@ -340,6 +343,13 @@ LIN_WARPS_MIN = 16
 # Kernel E's small batches (the small-batch step's shapes), on the first
 # scenarios of the cell's QPs.
 E_SMALL_B = (1, 127)
+# Kernel F's small batch, the warp schedule's (below mpcq_sqp_step_lanes'
+# threshold), on the first scenarios of the cell's step.
+F_SMALL_B = 128
+# Kernel F's resident scenarios per SM at N = 10: three blocks of eight
+# half-warp teams (75,584 B a block) reach 24, against 12 one-warp blocks
+# with J staged (18,264 B).
+F_SCENARIOS_MIN = 24
 # Kernel E's resident scenarios per SM at N = 10 must pass the 24 that one
 # warp a scenario and a block allowed (8,440 B a block, 78 registers).
 E_SCENARIOS_BEFORE = 24
@@ -536,7 +546,12 @@ def phase_residency(regs: dict) -> None:
     registers and spills of the instantiation that runs there (R register
     slots a lane, nz <= 32 R), resident blocks and warps per SM (kernel B's
     blocks ``mpcq_sqp_block_warps`` warps, one scenario a warp, with the
-    shared memory a scenario; F's one warp); kernel E's schedule at the
+    shared memory a scenario); kernel F's schedule at the cell's batch (at
+    N = 10 eight scenarios a block, half a warp each, which must keep at
+    least F_SCENARIOS_MIN resident an SM with no spill; one warp a scenario
+    and a block past it) and its one-warp schedule at N = 10, with
+    scenarios a block, resident an SM and the device scratch a block;
+    kernel E's schedule at the
     cell's batch (at N = 10 eight scenarios a block, half a warp each, which
     must keep more than E_SCENARIOS_BEFORE resident an SM with no spill; one
     warp a scenario and a block past it) and its one-warp schedule at N =
@@ -571,18 +586,35 @@ def phase_residency(regs: dict) -> None:
     for N in (10, N_R3, N_LONG):
         nz = 4 * N
         slots = -(-nz // 32)
-        for name, key, smem, blocks, warps in (
-                ("sqp_fused_kernel", f"sqp_fused<{slots}>", lib.mpcq_sqp_ws_bytes(N),
-                 lib.mpcq_sqp_occupancy(0, N), lib.mpcq_sqp_block_warps(N)),
-                ("sqp_step_kernel", f"sqp_step<{slots}>", lib.mpcq_sqp_step_ws_bytes(N),
-                 lib.mpcq_sqp_occupancy(1, N), 1)):
-            row = {"kernel": name, "instantiation": key, "N": N, "nz": nz, "smem_bytes": smem,
-                   "warps_per_block": warps, "smem_bytes_per_scenario": smem // warps,
-                   **regs.get(key, {}), "resident_blocks_per_sm": blocks,
-                   "resident_warps_per_sm": blocks * warps}
-            rows[(name, N)] = row
-            emit("residency", **row)
-            check(blocks > 0, f"residency: {name} at N={N} does not launch: {row}")
+        name, key, smem = "sqp_fused_kernel", f"sqp_fused<{slots}>", lib.mpcq_sqp_ws_bytes(N)
+        blocks, warps = lib.mpcq_sqp_occupancy(0, N), lib.mpcq_sqp_block_warps(N)
+        row = {"kernel": name, "instantiation": key, "N": N, "nz": nz, "smem_bytes": smem,
+               "warps_per_block": warps, "smem_bytes_per_scenario": smem // warps,
+               **regs.get(key, {}), "resident_blocks_per_sm": blocks,
+               "resident_warps_per_sm": blocks * warps}
+        rows[(name, N)] = row
+        emit("residency", **row)
+        check(blocks > 0, f"residency: {name} at N={N} does not launch: {row}")
+    for N, lanes in ((10, lib.mpcq_sqp_step_lanes(SOLVE_B, 10)), (10, 32), (N_R3, 0), (N_LONG, 0)):
+        nz = 4 * N
+        lanes = lanes or lib.mpcq_sqp_step_lanes(SOLVE_B, N)
+        per_block, blocks = (lib.mpcq_sqp_step_block_scenarios(lanes, N),
+                             lib.mpcq_sqp_step_resident(lanes, N))
+        key = next(k for k in regs if k.startswith(f"sqp_step<{-(-nz // lanes)},{lanes},"))
+        row = {"kernel": "sqp_step_kernel", "instantiation": key, "N": N, "nz": nz,
+               "lanes_per_scenario": lanes, "smem_bytes": lib.mpcq_sqp_step_block_bytes(lanes, N),
+               "scratch_bytes_per_block": lib.mpcq_sqp_step_scratch_bytes(lanes, N),
+               "scenarios_per_block": per_block, "warps_per_block": per_block * lanes // 32,
+               "spill_stores_bytes": 0, **regs[key], "resident_blocks_per_sm": blocks,
+               "resident_scenarios_per_sm": blocks * per_block,
+               "resident_warps_per_sm": blocks * per_block * lanes // 32}
+        rows[("sqp_step_kernel", N, lanes)] = row
+        emit("residency", **row)
+        check(blocks > 0, f"residency: kernel F at N={N} does not launch: {row}")
+    f10 = rows[("sqp_step_kernel", 10, lib.mpcq_sqp_step_lanes(SOLVE_B, 10))]
+    check(f10["resident_scenarios_per_sm"] >= F_SCENARIOS_MIN and f10["spill_stores_bytes"] == 0,
+          f"residency: kernel F keeps {f10['resident_scenarios_per_sm']} scenarios per SM at "
+          f"N=10, fewer than {F_SCENARIOS_MIN}, or spills: {f10}")
     for N, lanes in ((10, lib.mpcq_box_qp_lanes(SOLVE_B, 40)), (10, 32), (N_R3, 0), (N_LONG, 0)):
         nz = 4 * N
         lanes = lanes or lib.mpcq_box_qp_lanes(SOLVE_B, nz)
@@ -985,25 +1017,54 @@ def phase_kernel_e(device, warm_start: bool = False) -> dict:
 
 def phase_kernel_f(device) -> dict:
     """The whole step in one kernel against its f32 plain version (kernel
-    A's, then kernel B's) and the f64 one, and against kernel B fed by
-    kernel A on the same inputs."""
+    A's, then kernel B's) and the f64 one, at B=65536 (half-warp teams,
+    eight scenarios a block) and on the first F_SMALL_B scenarios (a warp a
+    scenario), each schedule also run on the other's batch and held to the
+    same bits, and against kernel B fed by kernel A on the same inputs; NaN
+    isolation (scenario 7: its block-mates 0-6 too)."""
     solver, carry, x0, y_ref, aug = kernel_inputs(SOLVE_B, device)
     cfg = solver.cfg
     w = cfg.weight_tuples()
     X, U = carry.X, carry.U
     si = solver.step_inputs(X, U, x0, y_ref, y_ref[:, -1])
-    run = lambda XX: sqp_fused_kernel.fused_sqp_step(XX, U, *si, aug, solver.f, cfg.dt, *w,
-                                                     cfg.qp_iters)
+    run = lambda XX, UU=U, ss=si, gg=aug: sqp_fused_kernel.fused_sqp_step(
+        XX, UU, *ss, gg, solver.f, cfg.dt, *w, cfg.qp_iters)
+    lib, N = _build.load_library(), cfg.n_nodes
+    lanes = {B: lib.mpcq_sqp_step_lanes(B, N) for B in (F_SMALL_B, SOLVE_B)}
+    check(lanes == {F_SMALL_B: 32, SOLVE_B: 16}, f"kernel F's schedules by batch: {lanes}")
     out = run(X)
-    z_p, _, kkt_p, _, _ = sqp_fused_kernel.fused_sqp_step_plain(X, U, *si, aug, solver.f, cfg.dt,
-                                                                *w, cfg.qp_iters)
+    same = lambda a, b: all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                            for x, y in zip(a, b))
+    # a schedule taken whatever the batch: the launcher's C entry, uncounted
+    consts = _build.host_floats(lin_kernel.model_constants(solver.f.params, cfg.dt))
+    weights = _build.host_floats([v for ws in w for v in ws])
+    forced = lambda XX, UU, ss, gg, lanes: compare_build.run_f(
+        lib, {"X": XX, "U": UU, "aug": gg, "args": [None, None, *ss], "consts": consts,
+              "weights": weights, "iters": cfg.qp_iters, "lanes": lanes}, (None, None))
+    bitwise = {f"B{SOLVE_B}_lanes32": same(out, forced(X, U, si, aug, 32))}
+    cut = lambda a: a[:F_SMALL_B].contiguous()
+    Xs, Us, ss, gs = cut(X), cut(U), [cut(a) for a in si], aug.map(cut)
+    small = run(Xs, Us, ss, gs)
+    bitwise[f"B{F_SMALL_B}_lanes16"] = same(small, forced(Xs, Us, ss, gs, 16))
+    bitwise[f"B{F_SMALL_B}_vs_B{SOLVE_B}"] = same(small, [a[:F_SMALL_B] for a in out])
+    # a last block of seven live teams and one past the batch
+    r = F_SMALL_B - 1
+    bitwise[f"B{r}_lanes16_vs_B{SOLVE_B}"] = same(
+        forced(Xs[:r], Us[:r], [a[:r] for a in ss], gs.map(lambda a: a[:r]), 16),
+        [a[:r] for a in out])
+    plain = lambda *a: sqp_fused_kernel.fused_sqp_step_plain(*a, solver.f, cfg.dt, *w, cfg.qp_iters)
+    z_p, _, kkt_p, _, _ = plain(X, U, *si, aug)
     f64 = make_mpc_dynamics(solver.f.params.map(lambda a: a.double()))
     dbl = lambda a: a.double()
     z_d, dX_d, kkt_d, _, _ = sqp_fused_kernel.fused_sqp_step_plain(
         dbl(X), dbl(U), *map(dbl, si), aug.map(dbl), f64, cfg.dt, *w, cfg.qp_iters)
     st = qp_stats(out[0], out[2], z_d, kkt_d)
     st["z_plain_vs_f64"] = (z_p.double() - z_d).abs().max().item()
+    st["z_vs_plain_f32"] = (out[0] - z_p).abs().max().item()
     st["dX_vs_f64"] = (out[1].double() - dX_d).abs().max().item()
+    small_st = qp_stats(small[0], small[2], z_d[:F_SMALL_B], kkt_d[:F_SMALL_B])
+    small_st["z_vs_plain_f32"] = (small[0] - plain(Xs, Us, *ss, gs)[0]).abs().max().item()
+    del z_d, dX_d, kkt_d
     z_b = sqp_fused_kernel.fused_sqp_from_J(*step_args(solver, carry, x0, y_ref, aug), *w,
                                             cfg.qp_iters)[0]
     st["z_vs_kernel_b"] = (out[0] - z_b).abs().max().item()
@@ -1011,17 +1072,31 @@ def phase_kernel_f(device) -> dict:
     X_bad = X.clone()
     X_bad[bad, 3, 8] = float("nan")
     nan_isolated = isolated(bad, out, run(X_bad))
+    del X_bad
     ms = timed_ms(lambda: run(X), reps=5)
-    plain_ms = timed_ms(lambda: sqp_fused_kernel.fused_sqp_step_plain(
-        X, U, *si, aug, solver.f, cfg.dt, *w, cfg.qp_iters), reps=2)
-    work = bounds.sqp_step_work(SOLVE_B, cfg.n_nodes, N_BASIS, cfg.qp_iters)
+    small_ms = timed_ms(lambda: run(Xs, Us, ss, gs), reps=5)
+    plain_ms = timed_ms(lambda: plain(X, U, *si, aug), reps=2)
+    work = bounds.sqp_step_work(SOLVE_B, N, N_BASIS, cfg.qp_iters)
     emit("kernel_f", B=SOLVE_B, **st, nan_isolated=nan_isolated, ms=ms, plain_ms=plain_ms,
-         smem_bytes=_build.load_library().mpcq_sqp_step_ws_bytes(cfg.n_nodes), **work,
+         bound_share=work["bound_ms"] / ms, lanes_by_batch=lanes, bitwise_schedules=bitwise,
+         **{f"B{F_SMALL_B}_{k}": v for k, v in small_st.items()},
+         **{f"B{F_SMALL_B}_ms": small_ms},
+         smem_bytes=lib.mpcq_sqp_step_block_bytes(lanes[SOLVE_B], N),
+         scenarios_per_block=lib.mpcq_sqp_step_block_scenarios(lanes[SOLVE_B], N), **work,
          tol_z=QP_Z_TOL, tol_kkt=QP_KKT_TOL)
     check(all(torch.isfinite(a).all() for a in out), "kernel F: non-finite output")
     check(bool((out[3] > 0).all()) and bool((out[4] > 0).all()), "kernel F: duals not positive")
     check_qp("kernel F", st)
+    # at B = 128 a share of converged scenarios is a count of a few (the
+    # f32 floor here is 3 of 128, the first rows of the B = 65536 run,
+    # bitwise): z and the KKT's largest value are held, the share at 65536
+    check(small_st["z_vs_f64"] < QP_Z_TOL, f"kernel F at B={F_SMALL_B} z: {small_st}")
+    check(small_st["kkt_max"] <= small_st["kkt_f64_max"] + QP_KKT_TOL,
+          f"kernel F at B={F_SMALL_B} max KKT beyond the f32 floor over the oracle's: {small_st}")
     check(st["z_plain_vs_f64"] < QP_Z_TOL, f"kernel F plain z: {st}")
+    check(st["z_vs_plain_f32"] < QP_Z_TOL and small_st["z_vs_plain_f32"] < QP_Z_TOL,
+          f"kernel F against its f32 plain version: {st} {small_st}")
+    check(all(bitwise.values()), f"kernel F: the schedules' bits differ: {bitwise}")
     check(nan_isolated, "kernel F: a NaN scenario changed another scenario's outputs")
     return {"max_abs_err": st["z_vs_f64"], "ms": ms, "plain_ms": plain_ms, **work}
 

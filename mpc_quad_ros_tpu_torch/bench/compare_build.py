@@ -2,7 +2,7 @@
 one process, on the same inputs.
 
     python -m mpc_quad_ros_tpu_torch.bench.compare_build --other PATH [--B 65536]
-        [--solves split,hybrid] [--riccati]
+        [--solves split,hybrid] [--riccati] [--kernels ABCDEFGHIJ]
 
 PATH is another checkout of this repository (an earlier commit, unpacked).
 Its ``ops/cuda/_build.py`` builds its own ``csrc/`` into its own ``build/``,
@@ -20,10 +20,13 @@ kernel E again at the horizons and batches of ``E_STEPS`` (the first
 scenarios of the N=10 step, or a step of its own), cold and warm, and at
 the shapes of ``E_SCHEDULES`` with this checkout's schedule of 16 or 32
 lanes a scenario taken whatever the batch (``mpcq_box_qp_sched``, where the
-library has it), and kernel C on kernel A's J of the same cell's step at
-the horizons and batches of ``RICCATI_STEPS``.
+library has it), kernel F again at the inputs of ``F_STEPS`` and, with a
+schedule forced, ``F_SCHEDULES`` (``mpcq_sqp_step_sched``, where the library
+has it), cold and warm, and kernel C on kernel A's J of the same cell's
+step at the horizons and batches of ``RICCATI_STEPS``.
 Kernel C's entry takes a device scratch where the library has
-``mpcq_riccati_scratch_bytes`` (its other arguments are the same).
+``mpcq_riccati_scratch_bytes``, and kernel F's where it has
+``mpcq_sqp_step_grid`` (their other arguments are the same).
 Kernels G, H and I (``mpcq_fma``, ``mpcq_mirror``, ``mpcq_elem``) run at the
 bench's shapes, whatever B: G at ``phases.REGISTER_SHAPE`` and
 ``STREAMING_SHAPE`` on ``phases.fma_input``, H and I on the transpose
@@ -105,6 +108,13 @@ def ab_inputs(step: dict, B: int) -> dict:
     J, *tail = (a[:B].contiguous() for a in step["args"][:4])
     return {"args": [*(a.contiguous() for a in split_AB(J)), *tail],
             "weights": step["weights"], "N": step["N"]}
+
+
+def first_steps(step: dict, b: int) -> dict:
+    """Kernel F's inputs and warm duals of the first b scenarios of a step."""
+    cut = lambda a: a[:b].contiguous()
+    return dict(step, X=cut(step["X"]), U=cut(step["U"]), aug=step["aug"].map(cut),
+                args=[cut(a) for a in step["args"]], duals=tuple(map(cut, step["duals"])))
 
 
 def first_scenarios(step: dict, b: int) -> dict:
@@ -228,10 +238,19 @@ def run_f(lib, inp, duals):
     out = [torch.empty((B, 4 * N), device=X.device), torch.empty((B, N + 1, 13), device=X.device),
            torch.empty((B,), device=X.device), torch.empty((B, 4 * N), device=X.device),
            torch.empty((B, 4 * N), device=X.device)]
-    rc = lib.mpcq_sqp_step(X.data_ptr(), U.data_ptr(), *_ptrs((aug.X, aug.w, aug.L, aug.sigma_f)),
-                           aug.X.shape[-1], *_ptrs(inp["args"][2:]), *_ptrs(duals),
-                           inp["consts"].data_ptr(), inp["weights"].data_ptr(), *_ptrs(out), B, N,
-                           inp["iters"], torch.cuda.current_stream().cuda_stream)
+    args = [X.data_ptr(), U.data_ptr(), *_ptrs((aug.X, aug.w, aug.L, aug.sigma_f)),
+            aug.X.shape[-1], *_ptrs(inp["args"][2:]), *_ptrs(duals), inp["consts"].data_ptr(),
+            inp["weights"].data_ptr(), *_ptrs(out)]
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, "mpcq_sqp_step_grid"):
+        lanes = inp.get("lanes") or lib.mpcq_sqp_step_lanes(B, N)
+        blocks = lib.mpcq_sqp_step_grid(B, N, lanes)
+        scratch = torch.empty(max(blocks, 0) * lib.mpcq_sqp_step_scratch_bytes(lanes, N) // 4,
+                              device=X.device)
+        rc = lib.mpcq_sqp_step_sched(*args, scratch.data_ptr(), blocks, B, N, inp["iters"], lanes,
+                                     stream)
+    else:
+        rc = lib.mpcq_sqp_step(*args, B, N, inp["iters"], stream)
     _build.check_status("compare_build kernel F", rc)
     return out
 
@@ -281,6 +300,17 @@ E_STEPS = ((10, 1), (10, 127), (10, 16384), (5, 65536), (17, 65536), (40, 8192))
 E_SCHEDULES = (("step", 32), ("e10x16384", 32), ("e10x16384", 16), ("e10x1", 16),
                ("e10x127", 16))
 
+# Kernel F's steps beside the N=10 step at B, as inputs: N=10 at 128 (a warp
+# a scenario) and at 16384 (the first scenarios of the N=10 step), N=17 and
+# 20 at the cell's batch (a warp a scenario) and N=40 at 8192 (kernel E's
+# step there).
+F_STEPS = ("step10x128", "f10x16384", "step17x65536", "step20x65536", "e40x8192")
+# Kernel F's inputs run again with one schedule taken whatever the batch, as
+# (inputs, lanes a scenario): each schedule on the other's batches at N=10,
+# and both about the batch where the wrapper switches (STEP_PAIR_MIN_B).
+F_SCHEDULES = (("step", 32), ("f10x16384", 32), ("f10x16384", 16), ("step10x128", 16),
+               *((f"f10x{b}", lanes) for b in (1024, 2048, 4096, 8192) for lanes in (16, 32)))
+
 # Kernel C's steps, as (N, scenarios): the Riccati slice's horizon and two
 # on either side of it at the cell's batch, and N=40 at a batch that leaves
 # the card's SMs a few blocks each.
@@ -309,6 +339,8 @@ KERNELS = (("A", run_a, False, "step"),
            *(("E", run_e, True, f"e{n}x{b}") for n, b in E_STEPS),
            *(("E", run_e, True, f"{key}@{lanes}") for key, lanes in E_SCHEDULES),
            ("F", run_f, True, "step"),
+           *(("F", run_f, True, key) for key in F_STEPS),
+           *(("F", run_f, True, f"{key}@{lanes}") for key, lanes in F_SCHEDULES),
            ("J", run_j, False, "ab1"), ("J", run_j, False, "ab127"),
            ("G", run_g, False, "fma_registers"), ("G", run_g, False, "fma_smem"),
            ("H", _run_probe("mpcq_mirror"), False, "probe4"),
@@ -333,6 +365,8 @@ def make_inputs(key: str, B: int, inputs: dict, device) -> dict:
         inp = dict(make_inputs(base, B, inputs, device), lanes=int(lanes))
     elif key.startswith("e10x"):
         inp = first_scenarios(make_inputs("step", B, inputs, device), int(key[len("e10x"):]))
+    elif key.startswith("f10x"):
+        inp = first_steps(make_inputs("step", B, inputs, device), int(key[len("f10x"):]))
     elif key.startswith("e"):
         n, b = map(int, key[1:].split("x"))
         inp = step_inputs(b, device, N=n)
@@ -380,11 +414,13 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def compare(other: pathlib.Path, B: int = 65536, reps: int = 5) -> list[dict]:
+def compare(other: pathlib.Path, B: int = 65536, reps: int = 5, kernels: str = "") -> list[dict]:
     dev = torch.device("cuda", 0)
     libs = {"other": other_library(other), "this": _build.load_library()}
     inputs, rows = {}, []
     for name, run, warm, key in KERNELS:
+        if kernels and name not in kernels:
+            continue
         inp = make_inputs(key, B, inputs, dev)
         starts = (("cold", (None, None)),) + ((("warm", inp["duals"]),) if warm else ())
         for start, duals in starts:
@@ -473,11 +509,12 @@ def main(argv=None) -> None:
     ap.add_argument("--solves", default="", help="pipelines to run end to end, comma-separated")
     ap.add_argument("--riccati", action="store_true",
                     help="each checkout's kernel C profile and Riccati-step breakdown")
+    ap.add_argument("--kernels", default="", help="only these kernels' rows (letters, e.g. EF)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_build: needs a CUDA device")
     print(card(), flush=True)
-    for row in compare(args.other, args.B):
+    for row in compare(args.other, args.B, kernels=args.kernels):
         print(json.dumps(row), flush=True)
     for pipeline in filter(None, args.solves.split(",")):
         print(json.dumps(solve_rates(args.other, pipeline, args.B)), flush=True)

@@ -13,7 +13,8 @@
    own ``_build.py``: kernel B's in ``csrc/ipm_box.cuh`` (the Cholesky's
    trailing updates, its panel steps' row updates, the two substitutions,
    H z, the fill of the factor's lower triangle from H), or its Cholesky's
-   panel width changed; kernel E's in ``csrc/qp_kernel.cu`` (the trailing
+   panel width changed; kernel E's in ``csrc/box_qp.cuh`` (``E_SOURCE``;
+   ``csrc/qp_kernel.cu`` before kernel F ran it too: the trailing
    updates, the panels' rows past the panel, the two substitutions, H z past
    its first quad, the fill).
    Kernel B or E at --B, 12 iterations, against the unchanged source in the
@@ -56,7 +57,8 @@ VARIANTS = {
     "chol_panel_2": [("constexpr int CHOL_PANEL = 4;", "constexpr int CHOL_PANEL = 2;")],
     "chol_panel_8": [("constexpr int CHOL_PANEL = 4;", "constexpr int CHOL_PANEL = 8;")],
 }
-# kernel E's variant -> edits of csrc/qp_kernel.cu
+# kernel E's variant -> edits of csrc/E_SOURCE
+E_SOURCE = "box_qp.cuh"
 E_VARIANTS = {
     "e_no_trailing_update": [("for (int e = e0 + lane; e < e1; e += nl) {",
                               "for (int e = e1 + lane; e < e1; e += nl) {")],
@@ -122,7 +124,7 @@ def main(argv=None) -> None:
                       "B_ms": ms(lambda: run_b(lib, inp, COLD), dev, 3),
                       "E_ms": ms(lambda: run_e(lib, inp, COLD), dev, 3)}), flush=True)
     for source, variants, kernel, run in (("ipm_box.cuh", VARIANTS, "B", run_b),
-                                          ("qp_kernel.cu", E_VARIANTS, "E", run_e)):
+                                          (E_SOURCE, E_VARIANTS, "E", run_e)):
         for name, edits in variants.items():
             vlib = other_library(variant_checkout(name, edits, root, source))
             print(json.dumps({"variant": name, "B": args.B, "iters": inp["iters"],

@@ -136,6 +136,23 @@ MPCQ_HD void store4(double* dst, double a, double b, double c, double d) {
   dst[0] = a; dst[1] = b; dst[2] = c; dst[3] = d;
 }
 
+// Thread t of nt copies n elements from shared memory to dst (both 16-byte
+// aligned): groups of four as one 16-byte store on the card, the ragged end
+// (and everything on the host) element by element.
+template <typename T> MPCQ_HD void store_span(int t, int nt, T* dst, const T* src, int n) {
+  for (int e0 = 4 * t; e0 < n; e0 += 4 * nt) {
+#if defined(__CUDA_ARCH__)
+    if constexpr (std::is_same_v<T, float>) {
+      if (e0 + 4 <= n) {
+        *reinterpret_cast<float4*>(dst + e0) = *reinterpret_cast<const float4*>(src + e0);
+        continue;
+      }
+    }
+#endif
+    for (int e = e0; e < e0 + 4 && e < n; ++e) dst[e] = src[e];
+  }
+}
+
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 
@@ -252,6 +269,10 @@ struct HalfWarpTeam {
   }
   template <typename T> __device__ __forceinline__ T min(T v) const {
     for (int o = 8; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+  }
+  template <typename T> __device__ __forceinline__ T max(T v) const {
+    for (int o = 8; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
     return v;
   }
   // lane src's v of this half, on every lane of the half

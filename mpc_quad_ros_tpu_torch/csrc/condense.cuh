@@ -17,11 +17,12 @@
 // term gu.  Every element of H, g, M and d is one chain in a fixed order,
 // whatever lane runs it, so the two paths below give the same bits:
 //
-// - condense_packed (kernels B, F, for ipm_box.cuh): H (ld = nz + 1) with
-//   element (r, c), c < r, at (c, r) in the upper triangle and the diagonal
-//   in the spare column nz; the lower triangle is left for the IPM's factor.
-//   J is read whole where it lies: staged in shared memory (kernel F) or in
-//   device memory, through L1 (kernel B).  One map M in shared memory: each
+// - condense_packed (kernels B and F): H (ld = nz + 1 for ipm_box.cuh,
+//   box_qp.cuh's ld for kernel F) with element (r, c), c < r, at (c, r) in
+//   the upper triangle and the diagonal in column nz; the lower triangle is
+//   left for the IPM's factor.  J is read whole where it lies in device
+//   memory, through L1 (kernel B's from kernel A, kernel F's from its own
+//   scratch).  One map M in shared memory: each
 //   lane forms its own columns of M_{k+1} in registers and writes them over
 //   M_k's.
 // - condense_full (kernels D, J): H kept as its packed lower triangle,
@@ -95,8 +96,9 @@ template <typename T> struct StreamedAB {
 };
 
 // Condense from J (N x 17 x 13, in shared or device memory) into the packed
-// layout of H (nz x ld) and g, using one map M (13 x nz) and db (2 x 13).
-// rg, dx0, ex0 may lie in device or shared memory.  Ends with a team sync.
+// layout of H (nz rows of stride ld >= nz + 1, its diagonal in column nz)
+// and g, using one map M (13 x nz) and db (2 x 13).  rg, dx0, ex0 may lie in
+// device or shared memory.  Ends with a team sync.
 //
 // The map's recurrence is lane-local: lane l owns columns l, l + size, ...
 // of M, and once every lane has read M_k for H and g it reads its column of
@@ -105,9 +107,9 @@ template <typename T> struct StreamedAB {
 // same entry of A_k at a time: from device memory one broadcast load through
 // L1, from shared memory one broadcast.
 template <typename T, typename Team>
-MPCQ_HD void condense_packed(const Team& tm, int N, const Weights<T>& wt, const T* J, T* M,
-                             T* db, T* H, T* g, const T* rg, const T* dx0, const T* ex0) {
-  const int nz = N * SU, ld = nz + 1, ln = tm.lane, NL = Team::size;
+MPCQ_HD void condense_packed(const Team& tm, int N, int ld, const Weights<T>& wt, const T* J,
+                             T* M, T* db, T* H, T* g, const T* rg, const T* dx0, const T* ex0) {
+  const int nz = N * SU, ln = tm.lane, NL = Team::size;
 
   for (int e = ln; e < SX * nz; e += NL) M[e] = T(0);
   for (int e = ln; e < nz * ld; e += NL) H[e] = T(0);
@@ -176,6 +178,13 @@ MPCQ_HD void condense_packed(const Team& tm, int N, const Weights<T>& wt, const 
   tm.sync();
   for (int i = ln; i < nz; i += NL) H[i * ld + nz] = H[i * ld + nz] + wt.rw[i % SU];
   tm.sync();
+}
+
+// The same into ipm_box.cuh's layout (ld = nz + 1): kernel B's.
+template <typename T, typename Team>
+MPCQ_HD void condense_packed(const Team& tm, int N, const Weights<T>& wt, const T* J, T* M,
+                             T* db, T* H, T* g, const T* rg, const T* dx0, const T* ex0) {
+  condense_packed(tm, N, N * SU + 1, wt, J, M, db, H, g, rg, dx0, ex0);
 }
 
 // ---- the full layout (kernels D and J) ----

@@ -20,10 +20,11 @@
 // - result clip(z, lb', ub') * s in the original variables, and the duals
 //   zl / s, zu / s (unscaled, on both starts).
 //
-// One definition serves kernels B and F, so the pipelines solve the same QP
-// by the same code (as the Pallas consumers share ipm_box_solve); kernel E
-// (qp_kernel.cu) computes every element as this code does, on a schedule of
-// its own, and its host builds are held to this one bit for bit.
+// Kernel B runs this definition; kernels E and F (box_qp.cuh's
+// box_qp_solve) compute every element as this code does, on a schedule of
+// their own, and their host builds are held to this one bit for bit, so the
+// pipelines solve the same QP to the same bits (as the Pallas consumers
+// share ipm_box_solve).
 //
 // Where the data lives.  One nz x (nz + 1) matrix A per scenario (row-major,
 // ld = nz + 1, odd, so lanes walking a column or a row hit distinct banks):

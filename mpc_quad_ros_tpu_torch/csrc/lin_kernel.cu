@@ -20,9 +20,10 @@
 // SM (64 or 32: a mid-sized batch's blocks spread over more SMs):
 // 1. the primal, one thread a column: model.cuh's rk4 on Val numbers,
 //    recording what the tangents read besides their own derivatives
-//    (`anchor`: each RK4 stage's q, v and w, and a_m; the drag's means m and
-//    their Jacobian diagonal jd at each stage, the JAX custom-JVP rule): 65
-//    floats a column, the tile's columns side by side in shared memory.
+//    (model.cuh's record, which kernel F keeps too: each RK4 stage's q, v
+//    and w, and a_m; the drag's means m and their Jacobian diagonal jd at
+//    each stage, the JAX custom-JVP rule): 65 floats a column, the tile's
+//    columns side by side in shared memory.
 //    x+ leaves through the warp's stage buffer;
 // 2. after one block barrier, the tile's cols x 17 (column, tangent) items,
 //    in rounds of one a thread: model.cuh's tangent_item, dual numbers whose
@@ -45,8 +46,6 @@
 // so a NaN in one scenario leaves every other scenario's outputs bitwise
 // unchanged.
 
-#include <type_traits>
-
 #include "model.cuh"
 
 namespace mpcq {
@@ -56,11 +55,6 @@ constexpr int TILE = 128, THREADS = 128;   // columns and threads per block
 constexpr int WARPS = THREADS / 32;
 constexpr int MIN_BLOCKS = 5;              // resident blocks an SM asked of the compiler
 constexpr int J_COL = NT * NX;             // J's floats per column
-// A column's record, field by field (field f of tile column c at f TILE + c):
-constexpr int R_LEAF = 0;                  // stages 0-3: x[3..12] (q, v, w), 10 a stage
-constexpr int R_AM = 40;                   // a_m, the same at every stage
-constexpr int R_DRAG = 41;                 // stages 0-3: m (3), then jd (3)
-constexpr int R_FIELDS = R_DRAG + 4 * 6;
 // A block's shared memory in elements: the records, then one stage buffer a
 // warp (32 rows of 13: its x+ or its J rows of a round), 16-byte aligned.
 constexpr int STAGE = 32 * NX;
@@ -77,82 +71,6 @@ template <typename T> struct Args {
   int N;
   ModelConsts<T> c;
 };
-
-MPCQ_HD int leaf_field(int s, int slot) { return R_LEAF + 10 * s + slot - 3; }
-MPCQ_HD int drag_field(int s, int a) { return R_DRAG + 6 * s + a; }
-
-// The primal pass's drag: the scenario's DragView; stage s records into the
-// column's record rec (stride TILE).
-template <typename T> struct RecordPrimal {
-  DragView<T> g;
-  T* rec;
-};
-template <typename T> struct RecordStage {
-  DragView<T> g;
-  T* rec;
-  int s, nb;
-};
-template <typename T> MPCQ_HD RecordStage<T> stage_drag(const RecordPrimal<T>& r, int s) {
-  return {r.g, r.rec, s, r.g.nb};
-}
-// each axis's mean and Jdiag (drag_sums, as a DragView's dual mean), recorded
-template <typename T>
-MPCQ_HD void drag_means(const Val<T>* vb, const RecordStage<T>& r, Val<T>* m) {
-  for (int a = 0; a < 3; ++a) {
-    T jd;
-    drag_sums(vb[a].v, r.g, a, m[a].v, jd);
-    r.rec[drag_field(r.s, a) * TILE] = m[a].v;
-    r.rec[drag_field(r.s, 3 + a) * TILE] = jd;
-  }
-}
-template <typename T> MPCQ_HD Val<T> anchor(const RecordStage<T>& r, Val<T> v, int slot) {
-  if (slot != ANCHOR_AM)
-    r.rec[leaf_field(r.s, slot) * TILE] = v.v;
-  else if (r.s == 0)
-    r.rec[R_AM * TILE] = v.v;
-  return v;
-}
-
-// The tangent pass's drag: stage s's recorded values in place of the duals'
-// values, the drag's tangent Jdiag * dvb (the product the dual mean forms).
-template <typename T> struct Recorded {
-  const T* rec;
-  int nb;
-};
-template <typename T> struct RecordedStage {
-  const T* rec;
-  int s, nb;
-};
-template <typename T> MPCQ_HD RecordedStage<T> stage_drag(const Recorded<T>& r, int s) {
-  return {r.rec, s, r.nb};
-}
-template <typename T>
-MPCQ_HD void drag_means(const Dual<T>* vb, const RecordedStage<T>& r, Dual<T>* m) {
-  MPCQ_UNROLL
-  for (int a = 0; a < 3; ++a)
-    m[a] = {r.rec[drag_field(r.s, a) * TILE],
-            rn_mul(r.rec[drag_field(r.s, 3 + a) * TILE], vb[a].d)};
-}
-template <typename T> MPCQ_HD Dual<T> anchor(const RecordedStage<T>& r, Dual<T> v, int slot) {
-  return {r.rec[(slot == ANCHOR_AM ? R_AM : leaf_field(r.s, slot)) * TILE], v.d};
-}
-
-// Thread t of nt copies n elements from shared memory to dst (both 16-byte
-// aligned): groups of four as one 16-byte store on the card, the ragged end
-// (and everything on the host) element by element.
-template <typename T> MPCQ_HD void store_span(int t, int nt, T* dst, const T* src, int n) {
-  for (int e0 = 4 * t; e0 < n; e0 += 4 * nt) {
-#if defined(__CUDA_ARCH__)
-    if constexpr (std::is_same_v<T, float>) {
-      if (e0 + 4 <= n) {
-        *reinterpret_cast<float4*>(dst + e0) = *reinterpret_cast<const float4*>(src + e0);
-        continue;
-      }
-    }
-#endif
-    for (int e = e0; e < e0 + 4 && e < n; ++e) dst[e] = src[e];
-  }
-}
 
 MPCQ_HD int clamp_rows(int left) { return left < 0 ? 0 : left < 32 ? left : 32; }
 
@@ -187,7 +105,7 @@ template <typename T> struct Tile {
     const DragView<T> g =
         drag_of((col0 - k0) / a.N + scenario(t), a.Xb, a.wb, a.L, a.sf, a.nb);
     Val<T> x[NX];
-    step_item(node(t), a.U + (col0 + t) * NU, RecordPrimal<T>{g, record(t)}, a.c, x);
+    step_item(node(t), a.U + (col0 + t) * NU, RecordPrimal<T, TILE>{g, record(t)}, a.c, x);
     T* st = stage(t / 32) + t % 32 * NX;
     for (int j = 0; j < NX; ++j) st[j] = x[j].v;
   }
@@ -201,7 +119,7 @@ template <typename T> struct Tile {
   MPCQ_HD void tangent(int it, int w) const {
     const int cl = it / NT, i = it % NT;
     Dual<T> x[NX];
-    tangent_item(Recorded<T>{record(cl), a.nb}, i, a.c, x);
+    tangent_item(Recorded<T, TILE>{record(cl), a.nb}, i, a.c, x);
     T* st = stage(w) + it % 32 * NX;
     for (int j = 0; j < NX; ++j) st[j] = x[j].d;
   }
@@ -342,7 +260,7 @@ extern "C" int mpcq_lin_host_f64(const double* X, const double* U, const double*
 
 // The dual pass the tangent pass takes apart: one lin_item a (column,
 // tangent) on the scenario's own drag, the primal recomputed in each (as
-// kernel F walks them); x+ from tangent 0's.  Host only (f64), for the CPU
+// kernel F walked them before it took the record too); x+ from tangent 0's.  Host only (f64), for the CPU
 // test that the recorded pass gives its bits.
 extern "C" int mpcq_lin_dual_host_f64(const double* X, const double* U, const double* Xb,
                                       const double* wb, const double* L, const double* sf,

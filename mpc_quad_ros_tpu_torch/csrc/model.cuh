@@ -1,11 +1,11 @@
 // The MPC model of the linearisation kernels: the folded-RGP drag model f,
 // its RK4 step, and the forward dual numbers that give the step's tangents.
 //
-// Shared by kernel A (lin_kernel.cu: the primal step once per column,
-// recorded, then the 17 tangents with the recorded primal read back) and
-// kernel F (sqp_fused_kernel.cu: one warp per scenario, its lanes walking the
-// scenario's (stage, tangent) items of lin_item), so both linearise by the
-// same model code.
+// Shared by kernels A (lin_kernel.cu) and F (sqp_fused_kernel.cu), which
+// both run the primal step once per column, recorded (step_item on the
+// record drags below), then the 17 tangents with the recorded primal read
+// back (tangent_item), so both linearise by the same model code and the
+// same record.
 // The model is written once as a template over the scalar type: the primal
 // on Val numbers, a tangent item on forward dual numbers {val, der} seeded
 // with the unit vector of its input, so no derivative is written by hand.
@@ -17,8 +17,8 @@
 // (the rn_* functions; a product added to something is one fma, written
 // out), which the compiler fuses into no other: a value and a derivative
 // get the same bits in whichever kernel inlines them, so kernels A and F,
-// and kernel A's primal and tangent passes, agree bit for bit by
-// construction, not by the compiler's choice of contractions.
+// their primal and tangent passes and the dual pass they take apart agree
+// bit for bit by construction, not by the compiler's choice of contractions.
 //
 // Parameters arrive as a POD struct of the scalars the JAX kernel derives
 // (_make_f), not as literals.  Built without --use_fast_math: expf stays
@@ -140,9 +140,9 @@ MPCQ_HD DragView<T> drag_of(int64_t b, const T* Xb, const T* wb, const T* L, con
 
 // The points of model_f whose value a tangent needs besides its own: slots
 // 3-12 the stage's state x[slot], ANCHOR_AM the thrust acceleration a_m.  A
-// DragView keeps the value computed there; kernel A's drags overload this
-// to record it (its primal pass) or to put the recorded value in a dual's
-// place (its tangent pass, lin_kernel.cu), so that pass computes the
+// DragView keeps the value computed there; the record drags overload this
+// to record it (the primal pass) or to put the recorded value in a dual's
+// place (the tangent pass), so that pass computes the
 // derivative half of each dual operation and the compiler drops the rest.
 constexpr int ANCHOR_AM = NX;
 template <typename T, typename S> MPCQ_HD S anchor(const DragView<T>&, S v, int) { return v; }
@@ -170,8 +170,8 @@ template <typename T> MPCQ_HD void drag_sums(T vb, const DragView<T>& g, int a, 
 }
 
 // The three axes' means of vb (3), model_f's call: one axis after another,
-// a dual mean's tangent Jdiag dvb.  Kernel A's drags overload this to
-// record the sums (its primal pass) or read them back (its tangent pass).
+// a dual mean's tangent Jdiag dvb.  The record drags overload this to
+// record the sums (the primal pass) or read them back (the tangent pass).
 template <typename T>
 MPCQ_HD void drag_means(const Dual<T>* vb, const DragView<T>& g, Dual<T>* m) {
   for (int a = 0; a < 3; ++a) {
@@ -182,7 +182,7 @@ MPCQ_HD void drag_means(const Dual<T>* vb, const DragView<T>& g, Dual<T>* m) {
 }
 
 // The drag of RK4 stage s (0-3): a DragView is the same at every stage;
-// kernel A's recording and recorded drags overload this.
+// the recording and recorded drags overload this.
 template <typename T> MPCQ_HD const DragView<T>& stage_drag(const DragView<T>& g, int) {
   return g;
 }
@@ -190,7 +190,7 @@ template <typename T> MPCQ_HD const DragView<T>& stage_drag(const DragView<T>& g
 // The MPC model f(x, u) with the folded drag — the formulas of _make_f, a
 // product added to a sum as one fma.  S is Val<T> or Dual<T>; the drag G is
 // a DragView, or any type with an `nb` and drag_means and anchor overloads
-// (kernel A's drags).
+// (the record drags).
 template <typename S, typename T, typename G>
 MPCQ_HD void model_f(const S* x, const S* u, const ModelConsts<T>& c, const G& g, S* dx) {
   S qw = anchor(g, x[3], 3), qx = anchor(g, x[4], 4), qy = anchor(g, x[5], 5),
@@ -275,7 +275,7 @@ MPCQ_HD void lin_item(const T* x0, const T* u0, const G& g, int i, const ModelCo
 }
 
 // Row i of the tangents alone, where the drag G puts a recorded value in
-// place of every value the derivatives read (kernel A's tangent pass): the
+// place of every value the derivatives read (the tangent pass): the
 // items' values start at 0 and are dropped.
 template <typename T, typename G>
 MPCQ_HD void tangent_item(const G& g, int i, const ModelConsts<T>& c, Dual<T>* x) {
@@ -294,6 +294,82 @@ MPCQ_HD void step_item(const T* x0, const T* u0, const G& g, const ModelConsts<T
   for (int j = 0; j < NX; ++j) x[j] = {x0[j]};
   for (int a = 0; a < NU; ++a) u[a] = {u0[a]};
   rk4(x, u, c, g);
+}
+
+// ---- the primal once, recorded; the tangents on the record (kernels A, F) ----
+//
+// What a tangent reads besides its own derivatives, recorded by the primal
+// step of its column (`anchor`: each RK4 stage's q, v and w, and a_m; the
+// drag's means m and their Jacobian diagonal jd at each stage, the JAX
+// custom-JVP rule): R_FIELDS values a column.  Field f of a column's record
+// lies at rec[f * FS]: kernel A keeps a tile's columns side by side (FS =
+// its tile width), kernel F a column's fields together (FS = 1).
+constexpr int R_LEAF = 0;                  // stages 0-3: x[3..12] (q, v, w), 10 a stage
+constexpr int R_AM = 40;                   // a_m, the same at every stage
+constexpr int R_DRAG = 41;                 // stages 0-3: m (3), then jd (3)
+constexpr int R_FIELDS = R_DRAG + 4 * 6;
+
+MPCQ_HD int leaf_field(int s, int slot) { return R_LEAF + 10 * s + slot - 3; }
+MPCQ_HD int drag_field(int s, int a) { return R_DRAG + 6 * s + a; }
+
+// The primal pass's drag: the scenario's DragView; stage s records into the
+// column's record rec.
+template <typename T, int FS> struct RecordPrimal {
+  DragView<T> g;
+  T* rec;
+};
+template <typename T, int FS> struct RecordStage {
+  DragView<T> g;
+  T* rec;
+  int s, nb;
+};
+template <typename T, int FS>
+MPCQ_HD RecordStage<T, FS> stage_drag(const RecordPrimal<T, FS>& r, int s) {
+  return {r.g, r.rec, s, r.g.nb};
+}
+// each axis's mean and Jdiag (drag_sums, as a DragView's dual mean), recorded
+template <typename T, int FS>
+MPCQ_HD void drag_means(const Val<T>* vb, const RecordStage<T, FS>& r, Val<T>* m) {
+  for (int a = 0; a < 3; ++a) {
+    T jd;
+    drag_sums(vb[a].v, r.g, a, m[a].v, jd);
+    r.rec[drag_field(r.s, a) * FS] = m[a].v;
+    r.rec[drag_field(r.s, 3 + a) * FS] = jd;
+  }
+}
+template <typename T, int FS>
+MPCQ_HD Val<T> anchor(const RecordStage<T, FS>& r, Val<T> v, int slot) {
+  if (slot != ANCHOR_AM)
+    r.rec[leaf_field(r.s, slot) * FS] = v.v;
+  else if (r.s == 0)
+    r.rec[R_AM * FS] = v.v;
+  return v;
+}
+
+// The tangent pass's drag: stage s's recorded values in place of the duals'
+// values, the drag's tangent Jdiag * dvb (the product the dual mean forms).
+template <typename T, int FS> struct Recorded {
+  const T* rec;
+  int nb;
+};
+template <typename T, int FS> struct RecordedStage {
+  const T* rec;
+  int s, nb;
+};
+template <typename T, int FS>
+MPCQ_HD RecordedStage<T, FS> stage_drag(const Recorded<T, FS>& r, int s) {
+  return {r.rec, s, r.nb};
+}
+template <typename T, int FS>
+MPCQ_HD void drag_means(const Dual<T>* vb, const RecordedStage<T, FS>& r, Dual<T>* m) {
+  MPCQ_UNROLL
+  for (int a = 0; a < 3; ++a)
+    m[a] = {r.rec[drag_field(r.s, a) * FS],
+            rn_mul(r.rec[drag_field(r.s, 3 + a) * FS], vb[a].d)};
+}
+template <typename T, int FS>
+MPCQ_HD Dual<T> anchor(const RecordedStage<T, FS>& r, Dual<T> v, int slot) {
+  return {r.rec[(slot == ANCHOR_AM ? R_AM : leaf_field(r.s, slot)) * FS], v.d};
 }
 
 }  // namespace mpcq

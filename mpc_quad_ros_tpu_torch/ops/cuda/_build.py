@@ -46,10 +46,17 @@ WS_ENTRIES = ("mpcq_lin_ws_bytes", "mpcq_sqp_ws_bytes", "mpcq_sqp_step_ws_bytes"
 # kernel E's schedule by batch and nz (both builds)
 BOX_QP_SCHEDULE = {"mpcq_box_qp_lanes": [_I64, _I], "mpcq_box_qp_block_scenarios": [_I, _I],
                    "mpcq_box_qp_block_bytes": [_I, _I]}
+# kernel F's schedule by batch and horizon, its block and scratch (both builds)
+SQP_STEP_SCHEDULE = {"mpcq_sqp_step_lanes": [_I64, _I], "mpcq_sqp_step_block_scenarios": [_I, _I],
+                     "mpcq_sqp_step_block_bytes": [_I, _I], "mpcq_sqp_step_scratch_bytes": [_I, _I]}
 DEVICE_ENTRIES = {
     "mpcq_lin": [_P] * 6 + [_I, _P, _P, _I64, _I, _P, _P],
     "mpcq_sqp_fused": [_P] * 15 + [_I64, _I, _I, _P],
-    "mpcq_sqp_step": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I, _P],
+    "mpcq_sqp_step": [_P] * 6 + [_I] + [_P] * 15 + [_I64, _I64, _I, _I, _P],
+    "mpcq_sqp_step_sched": [_P] * 6 + [_I] + [_P] * 15 + [_I64, _I64, _I, _I, _I, _P],
+    "mpcq_sqp_step_grid": [_I64, _I, _I],
+    "mpcq_sqp_step_resident": [_I, _I],
+    **SQP_STEP_SCHEDULE,
     "mpcq_condense": [_P] * 9 + [_I64, _I, _P],
     "mpcq_condense_ab": [_P] * 10 + [_I64, _I, _P],
     "mpcq_box_qp": [_P] * 9 + [_I64, _I, _I, _P],
@@ -81,6 +88,8 @@ HOST_ENTRIES = {
     "mpcq_sqp_block_warps": [_I],
     "mpcq_sqp_step_host_f64": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I],
     "mpcq_sqp_step_host32_f64": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I],
+    "mpcq_sqp_step_host_block_f64": [_P] * 6 + [_I] + [_P] * 14 + [_I64, _I, _I],
+    **SQP_STEP_SCHEDULE,
     "mpcq_condense_host_f64": [_P] * 9 + [_I64, _I],
     "mpcq_condense_host32_f64": [_P] * 9 + [_I64, _I],
     "mpcq_condense_ab_host_f64": [_P] * 10 + [_I64, _I],
@@ -100,7 +109,9 @@ HOST_ENTRIES = {
     **{name: [_I] for name in WS_ENTRIES},
 }
 # entries that return something other than a CUDA status (int)
-RESTYPES = {name: _I64 for name in WS_ENTRIES + ("mpcq_box_qp_block_bytes",)}
+RESTYPES = {name: _I64 for name in WS_ENTRIES + (
+    "mpcq_box_qp_block_bytes", "mpcq_sqp_step_block_bytes", "mpcq_sqp_step_scratch_bytes",
+    "mpcq_sqp_step_grid")}
 
 _device_lib = None
 

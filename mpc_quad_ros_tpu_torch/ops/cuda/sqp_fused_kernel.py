@@ -7,12 +7,16 @@ _fused_from_J_kernel`` (the "hybrid" pipeline; IPM core:
 ``ops/pallas/qp_kernel.py::ipm_box_solve``); kernel F replaces
 ``_fused_kernel`` of the same file and its entry ``make_fused_sqp_step`` (the
 "fused" pipeline).  The CUDA source of both is ``csrc/sqp_fused_kernel.cu``
-with ``csrc/condense.cuh``, ``csrc/ipm_box.cuh`` and, for F,
-``csrc/model.cuh`` (one warp per scenario, one packed nz x (nz + 1) matrix
-and one condensing map a scenario in shared memory, kernel B reading J from
-device memory and holding two scenarios a block up to N = 16; bounded by
-the IPM's latency per scenario, which resident warps hide, and past 16
-warps an SM by the SM's throughput — see the source's header).
+with ``csrc/condense.cuh`` and, for B, ``csrc/ipm_box.cuh`` (one warp per
+scenario, one packed nz x (nz + 1) matrix and one condensing map a scenario
+in shared memory, J read from device memory, two scenarios a block up to
+N = 16), for F ``csrc/model.cuh`` and ``csrc/box_qp.cuh`` (kernel A's
+linearisation split and kernel E's schedule: half a warp a scenario, eight
+a block, from ``mpcq_sqp_step_lanes``' batch at N <= 10, else a warp a
+scenario; J and the defects in a device scratch of one slice a resident
+team, which this wrapper allocates).  Both are bounded by the IPM's latency
+per scenario, which resident scenarios hide, and then by the SM's
+throughput — see the source's header.
 
 Kernel B's inputs: J (B, N, 17, 13), r (B, N, 13), dx0 (B, 13), ex0
 (B, N+1, 13), gu / lb / ub (B, nz); q, p (13) and rw (4) weight floats;
@@ -124,14 +128,21 @@ def _launch_step(X, U, dx0, ex0, gu, lb, ub, aug, consts, q, p, rw, iters, duals
     check_weights("sqp_step_kernel", q, p, rw)
     check_horizon("sqp_step_kernel", N)
     lib = _build.load_library()
-    check_smem("sqp_step_kernel", lib.mpcq_sqp_step_ws_bytes(N), X.device, f"N={N}")
+    lanes = lib.mpcq_sqp_step_lanes(B, N)
+    check_smem("sqp_step_kernel", lib.mpcq_sqp_step_block_bytes(lanes, N), X.device, f"N={N}")
     consts = _build.host_floats(consts)
     weights = _build.host_floats(list(q) + list(p) + list(rw))
     out = _outputs(B, N, X)
-    rc = lib.mpcq_sqp_step(X.data_ptr(), U.data_ptr(), *aug_ptrs, nb,
-                           *(t.data_ptr() for t in (dx0, ex0, gu, lb, ub)), *_dual_ptrs(duals),
-                           consts.data_ptr(), weights.data_ptr(), *(t.data_ptr() for t in out),
-                           B, N, int(iters), torch.cuda.current_stream(X.device).cuda_stream)
+    blocks = lib.mpcq_sqp_step_grid(B, N, lanes)     # the card's resident blocks at most
+    if blocks < 0:
+        raise RuntimeError(f"sqp_step_kernel: no grid for B={B}, N={N} on {X.device}")
+    scratch = torch.empty(blocks * lib.mpcq_sqp_step_scratch_bytes(lanes, N) // 4,
+                          dtype=X.dtype, device=X.device)
+    rc = lib.mpcq_sqp_step_sched(X.data_ptr(), U.data_ptr(), *aug_ptrs, nb,
+                                 *(t.data_ptr() for t in (dx0, ex0, gu, lb, ub)),
+                                 *_dual_ptrs(duals), consts.data_ptr(), weights.data_ptr(),
+                                 *(t.data_ptr() for t in out), scratch.data_ptr(), blocks, B, N,
+                                 int(iters), lanes, torch.cuda.current_stream(X.device).cuda_stream)
     fused_sqp_step.launches += 1
     _build.check_status("sqp_step_kernel", rc)
     return out

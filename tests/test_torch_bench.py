@@ -2,9 +2,9 @@
 CPU: its copies of the JAX package's operation counts equal the originals,
 the new bounds count what the kernels do, and the timing entry points run
 end to end through the plain versions and answer under the JAX key names,
-and ``bench/riccati_parts.py``'s emptied copies of kernel C and
-``bench/ipm_parts.py``'s of kernels B and E apply to their sources (E's
-also build).  The card's numbers come from ``chip_smoke.py``."""
+and ``bench/riccati_parts.py``'s emptied copies of kernel C,
+``bench/ipm_parts.py``'s of kernels B and E and ``bench/step_parts.py``'s of
+kernel F apply to their sources (E's and F's also build).  The card's numbers come from ``chip_smoke.py``."""
 
 import math
 import shutil
@@ -14,7 +14,8 @@ import pytest
 
 from mpc_quad_ros_tpu.bench import phases as jax_phases
 from mpc_quad_ros_tpu.bench import probe_hybrid as jax_probe
-from mpc_quad_ros_tpu_torch.bench import bounds, ipm_parts, phases, probe_hybrid, riccati_parts, suite
+from mpc_quad_ros_tpu_torch.bench import (bounds, ipm_parts, phases, probe_hybrid, riccati_parts,
+                                          step_parts, suite)
 from mpc_quad_ros_tpu_torch.bench.ipm_parts import PACKAGE, variant_checkout
 from mpc_quad_ros_tpu_torch.ops.cuda import _build
 
@@ -111,7 +112,8 @@ def test_ipm_parts_edits_match_the_source(variant, tmp_path):
     """Each of ``bench/ipm_parts.py``'s copies applies to this checkout's
     source (``variant_checkout`` refuses an edit found other than once);
     kernel E's emptied copies also build for the host."""
-    edits, source = ((ipm_parts.E_VARIANTS[variant], "qp_kernel.cu") if variant in ipm_parts.E_VARIANTS
+    edits, source = ((ipm_parts.E_VARIANTS[variant], ipm_parts.E_SOURCE)
+                     if variant in ipm_parts.E_VARIANTS
                      else (ipm_parts.VARIANTS[variant], "ipm_box.cuh"))
     root = variant_checkout(variant, edits, tmp_path, source, PACKAGE)
     src = (root / PACKAGE.name / "csrc" / source).read_text()
@@ -120,5 +122,21 @@ def test_ipm_parts_edits_match_the_source(variant, tmp_path):
         return
     if shutil.which("g++") is None:
         pytest.skip("g++ is not available to build the kernels' host version")
-    subprocess.run(["g++", *_build.HOST_FLAGS, "-c", str(root / PACKAGE.name / "csrc" / source),
-                    "-o", str(tmp_path / "variant.o")], check=True)
+    subprocess.run(["g++", *_build.HOST_FLAGS, "-c", str(root / PACKAGE.name / "csrc" /
+                    "qp_kernel.cu"), "-o", str(tmp_path / "variant.o")], check=True)
+
+
+@pytest.mark.parametrize("variant", sorted(step_parts.DESIGNS["teams_scratch_j"][1]))
+def test_step_parts_edits_match_the_source(variant, tmp_path):
+    """Each of ``bench/step_parts.py``'s emptied copies of kernel F applies
+    to this checkout's source (its design is the teams', each edit found
+    exactly once) and the copy still builds for the host."""
+    design, variants = step_parts.design_of(PACKAGE)
+    assert design == "teams_scratch_j"
+    root = variant_checkout(variant, variants[variant], tmp_path, step_parts.SOURCE, PACKAGE)
+    src = (root / PACKAGE.name / "csrc" / step_parts.SOURCE).read_text()
+    assert src.count(step_parts.NEVER) == len(variants[variant])
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not available to build the kernels' host version")
+    subprocess.run(["g++", *_build.HOST_FLAGS, "-c", str(root / PACKAGE.name / "csrc" /
+                    step_parts.SOURCE), "-o", str(tmp_path / "variant.o")], check=True)

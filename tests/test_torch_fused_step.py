@@ -8,9 +8,8 @@ sqp_fused_kernel.py::fused_sqp_step``) on the CPU, float64.
   z to 1e-9, dX to 1e-8 (|dX| ~ 10), KKT to 1e-9, the duals to 1e-9.
 - The kernel's own source built with g++ for the host against the plain
   version (1e-9), cold and warm, with NaN isolation between scenarios.
-- Its shared-memory workspace: kernel B's with J staged and r in place of
-  kernel B's two-stage J buffer, under an H100 block's 232,448 B up to
-  FUSED_N_MAX = 40, beside kernels B, D and E at the same horizon.
+- Its shared-memory workspace and device scratch at FUSED_N_MAX = 40, under
+  an H100 block's 232,448 B, beside kernels B, D and E at the same horizon.
 - On a CUDA device: ``test_torch_cuda_kernels.py`` (JAX-free, so that it
   collects on the GPU host)."""
 
@@ -112,10 +111,15 @@ def test_kernel_source_on_host_matches_plain(step, host_lib, warm):
 def test_workspace_fits_up_to_fused_n_max(host_lib):
     limit = 232_448          # the shared memory an H100 block may opt into
     n = sqp.FUSED_N_MAX
-    # kernel F: kernel B's one-scenario block at N = 40 and its staged J and
-    # defects
+    # kernel F at N = 40: a warp a scenario and a block, the strip table
+    # (3,280 strips of 16 bits, 1,640 floats) and one team's region: the
+    # 160 x 164 slot, g, the 13 x 160 map and two d vectors, rounded up to
+    # four floats; J and the defects lie in the device scratch, a slice of
+    # 40 x (17 x 13 + 13) floats a team, and one spare slice a block
+    assert host_lib.mpcq_sqp_step_lanes(65536, n) == 32
     assert (host_lib.mpcq_sqp_step_ws_bytes(n)
-            == host_lib.mpcq_sqp_ws_bytes(n) + 4 * n * (17 * 13 + 13))
-    assert host_lib.mpcq_sqp_step_ws_bytes(n) <= limit < host_lib.mpcq_sqp_step_ws_bytes(50)
+            == 4 * (1_640 + (160 * 164 + 160 + 13 * 160 + 26 + 2)) == 120_592)
+    assert host_lib.mpcq_sqp_step_scratch_bytes(32, n) == 2 * 4 * n * (17 * 13 + 13)
+    assert host_lib.mpcq_sqp_step_ws_bytes(n) <= limit
     assert (host_lib.mpcq_condense_ws_bytes(n) < host_lib.mpcq_box_qp_ws_bytes(4 * n)
             < host_lib.mpcq_sqp_ws_bytes(n) <= limit)

@@ -35,6 +35,12 @@ B, E and F on the CPU, float64, at every register-slot count the card uses.
   scenarios (the case's four, tiled), bitwise the 32-thread team, and a NaN
   in one scenario leaves every other one, its block-mates included, bitwise
   unchanged.
+- Kernel F's block walk (``mpcq_sqp_step_host_block_f64``: eight 16-thread
+  teams on one NaN-filled block, its strip table built once, each team on
+  its slice of a NaN-filled scratch) at N = 3 and 10, bitwise its 32-thread
+  team, with a NaN in one scenario leaving its block-mates unchanged; and
+  kernel F's host builds bitwise kernel A's host build then kernel B's, at
+  every horizon (the fused and hybrid pipelines' bits).
 - Kernel E at an nz that is not a multiple of four (its last Cholesky
   panel and the last quad of its strips partial; the condensed QPs have
   nz = 4 N): random positive definite QPs, its three host walks against
@@ -139,16 +145,29 @@ def _run_b(lib, team, inp, duals, J, b=B):
     return out
 
 
+def _consts(inp):
+    solver = inp["solver"]
+    return torch.tensor(model_constants(solver.f.params, solver.cfg.dt), **f64)
+
+
 def _run_f(lib, team, inp, duals, X):
-    aug, solver = inp["aug"], inp["solver"]
-    consts = torch.tensor(model_constants(solver.f.params, solver.cfg.dt), **f64)
-    out, w = _step_out(inp["N"]), _weights(inp)
+    """Kernel F's host entry on the scenarios of X (the case's, or tiled)."""
+    aug, b = inp["aug"], X.shape[0]
+    consts, out, w = _consts(inp), _step_out(inp["N"], b), _weights(inp)
     rc = getattr(lib, f"mpcq_sqp_step_host{team}_f64")(
         ptr(X), ptr(inp["U"]), ptr(aug.X), ptr(aug.w), ptr(aug.L), ptr(aug.sigma_f),
         aug.X.shape[-1], *(ptr(inp[k]) for k in STEP), *map(ptr, duals or (None, None)),
-        ptr(consts), ptr(w), *map(ptr, out), B, inp["N"], ITERS)
+        ptr(consts), ptr(w), *map(ptr, out), b, inp["N"], ITERS)
     assert rc == 0
     return out
+
+
+def _tiled(case, n):
+    """Kernel F's inputs and the warm duals of the case's scenarios, repeated
+    n times."""
+    rep = lambda a: a.repeat((n,) + (1,) * (a.dim() - 1)).contiguous()
+    return dict(case, X=rep(case["X"]), U=rep(case["U"]), aug=case["aug"].map(rep),
+                duals=[rep(d) for d in case["duals"]], **{k: rep(case[k]) for k in STEP})
 
 
 def _run_e(lib, team, inp, duals, H, entry="mpcq_box_qp_host{}_f64", box=None):
@@ -281,6 +300,54 @@ def test_kernel_f_host_matches_plain(case, host_lib, team, warm):
     _isolated(out, _run_f(host_lib, TEAMS[team], case, duals, X_bad))
 
 
+@pytest.mark.parametrize("bad", [1, 9], ids=["nan_block0", "nan_block1"])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("case", BLOCK_HORIZONS, indirect=True, ids=lambda N: f"N{N}")
+def test_kernel_f_block_walk(case, host_lib, warm, bad):
+    """The card's block of kernel F on the host: eight 16-thread teams, one
+    strip table a block, each team on its region of the NaN-filled block
+    and its slice of the scratch, on 12 scenarios (a full block and part of
+    the next)."""
+    N, solver = case["N"], case["solver"]
+    assert host_lib.mpcq_sqp_step_block_scenarios(16, N) == E_PAIR_TEAMS
+    assert host_lib.mpcq_sqp_step_lanes(65536, N) == 16 and host_lib.mpcq_sqp_step_lanes(127, N) == 32
+    inp = _tiled(case, E_TILE)
+    duals = inp["duals"] if warm else None
+    ref = sqp_fused_kernel.fused_sqp_step_plain(
+        inp["X"], inp["U"], *(inp[k] for k in STEP), inp["aug"], solver.f, solver.cfg.dt,
+        *case["w"], ITERS, duals)
+    out = _run_f(host_lib, "_block", inp, duals, inp["X"])
+    _check_step(case, out, ref)
+    assert _same(out, _run_f(host_lib, "32", inp, duals, inp["X"]))
+    # a NaN in scenario `bad`; every other scenario's outputs unchanged
+    X_bad = inp["X"].clone()
+    X_bad[bad, 1, 8] = float("nan")
+    out_bad = _run_f(host_lib, "_block", inp, duals, X_bad)
+    keep = torch.arange(E_TILE * B) != bad
+    assert torch.isnan(out_bad[0][bad]).any()
+    assert all(torch.equal(a[keep], b[keep]) for a, b in zip(out_bad, out))
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("team", TEAMS)
+def test_kernel_f_host_is_kernel_a_then_b(case, host_lib, team, warm):
+    """Kernel F's bits are kernel A's linearisation (x+ and J, r = x+ -
+    X_{k+1}) fed to kernel B: the "fused" and "hybrid" pipelines agree
+    bitwise, whatever F's schedule (its IPM kernel E's, B's ipm_box.cuh's
+    bits)."""
+    N, aug = case["N"], case["aug"]
+    xp, J = torch.empty(B, N, 13, **f64), torch.empty(B, N, 17, 13, **f64)
+    consts = _consts(case)
+    rc = host_lib.mpcq_lin_host_f64(ptr(case["X"]), ptr(case["U"]), ptr(aug.X), ptr(aug.w),
+                                    ptr(aug.L), ptr(aug.sigma_f), aug.X.shape[-1], ptr(xp), ptr(J),
+                                    B, N, ptr(consts))
+    assert rc == 0
+    inp = dict(case, J=J, r=(xp - case["X"][:, 1:]).contiguous())
+    duals = case["duals"] if warm else None
+    assert _same(_run_f(host_lib, TEAMS[team], case, duals, case["X"]),
+                 _run_b(host_lib, TEAMS[team], inp, duals, J))
+
+
 @pytest.mark.parametrize("nz", [10, 23, 37])
 def test_kernel_e_odd_nz_matches_shared_ipm(host_lib, nz):
     rng = np.random.default_rng(nz)
@@ -316,7 +383,17 @@ def test_packed_layout_sizes(host_lib):
     # two warps a block up to nz = 64 (R = 2 register slots a lane), one past it
     assert (host_lib.mpcq_sqp_block_warps(16), host_lib.mpcq_sqp_block_warps(17)) == (2, 1)
     assert host_lib.mpcq_sqp_ws_bytes(10) == 2 * 4 * (40 * 41 + 40 + 13 * 40 + 26) == 2 * 8_904
-    assert host_lib.mpcq_sqp_step_ws_bytes(10) == 4 * (40 * 41 + 40 + 13 * 40 + 26 + 10 * (221 + 13)) == 18_264
+    # kernel F at N = 10 (and B >= 3072): eight half-warp teams a block on
+    # kernel E's table (112 floats), each team's region the 40 x 44 slot, g,
+    # one 13 x 40 map and two d vectors (2,346 floats, rounded up to four);
+    # J and the defects in the device scratch (10 x (221 + 13) floats a
+    # team, and a spare slice a block)
+    assert host_lib.mpcq_sqp_step_lanes(65536, 10) == 16 and host_lib.mpcq_sqp_step_lanes(127, 10) == 32
+    assert host_lib.mpcq_sqp_step_block_scenarios(16, 10) == 8
+    assert host_lib.mpcq_sqp_step_ws_bytes(10) == 4 * (112 + 8 * (40 * 44 + 40 + 13 * 40 + 26 + 2)) == 75_584
+    assert 3 * (75_584 + 1024) <= 233_472 < 4 * (75_584 + 1024)
+    assert host_lib.mpcq_sqp_step_scratch_bytes(16, 10) == 9 * 4 * 10 * (221 + 13)
+    assert host_lib.mpcq_sqp_step_block_bytes(32, 10) == 4 * (112 + 2_348)
     # kernel E: ld = 44 (a multiple of 4 past nz + 2 with ld / 4 odd), the
     # table 220 strips (columns of four, 40 + 36 + ... + 4 rows) of 16 bits
     # in 28 quads of floats
@@ -335,7 +412,7 @@ def test_packed_layout_sizes(host_lib):
     n = sqp.FUSED_N_MAX
     assert host_lib.mpcq_sqp_block_warps(n) == 1
     assert host_lib.mpcq_sqp_ws_bytes(n) == 4 * (160 * 161 + 160 + (2 * 160 + 6_360 + 160) + 26) == 131_144
-    assert host_lib.mpcq_sqp_step_ws_bytes(n) == 168_584
+    assert host_lib.mpcq_sqp_step_ws_bytes(n) == 4 * (1_640 + 160 * 164 + 160 + 13 * 160 + 26 + 2) == 120_592
     assert host_lib.mpcq_sqp_step_ws_bytes(n) <= limit
     # kernel E's own ceiling, nz = 214 before: nz = 229 (232 rows of ld = 236
     # and 6,670 strips), one warp a block
